@@ -12,10 +12,14 @@ Phases, each fatal on failure:
    version on the card, at the shapes of the main path: the grouped conv's
    forward, dX and dW at all six
    (layer, scale) geometries of the small scale discriminators on the paired
-   2B = 64 batch, in f32 (TF32 off) and bf16; AdamW over generator- and
-   discriminator-size parameter sets for 3 steps. Kernel, plain and library
-   times come from CUDA events; the bound is the larger of bytes over
-   3.35 TB/s and operations over the peak rate for the operand type;
+   2B = 64 batch, in f32 (TF32 off) and bf16; dX and dW also at the edge
+   geometries of ``tests/test_torch_grouped_conv.py`` (strides 1/2/4, groups
+   1-16, down to one channel per group, odd lengths) and one with K < stride,
+   in both types; two bf16 dW calls must agree bit for bit; AdamW over
+   generator- and discriminator-size parameter sets for 3 steps. Kernel,
+   plain and library times come from CUDA events; the bound is the larger of
+   bytes over 3.35 TB/s and operations over the peak rate for the operand
+   type;
 3. a small-input reference: two f32 train steps of a narrow configuration
    through the CUDA kernels agree with the same steps on the CPU (the
    kernels' plain versions);
@@ -48,6 +52,12 @@ TOL = {"float32": 1e-4, "bfloat16": 1e-2}  # max |kernel - plain| / max |plain|
 GROUPED_LAYERS = ((128, 256, 37, 2, 4, 18), (256, 512, 37, 2, 16, 18))
 PAIRED_BATCH = 64
 CHUNK = 2048
+#: Edge geometries (B, T, Cin, Cout, K, stride, pad, groups): the CASES of
+#: tests/test_torch_grouped_conv.py, then K < stride (a phase without taps).
+EDGE_GEOMETRIES = ((2, 64, 16, 32, 15, 1, 7, 1), (2, 64, 32, 64, 9, 2, 4, 4),
+                   (2, 64, 32, 64, 9, 2, 4, 16), (2, 64, 32, 64, 9, 4, 4, 8),
+                   (1, 50, 16, 16, 5, 2, 2, 4), (2, 64, 32, 256, 5, 1, 2, 2),
+                   (2, 33, 8, 16, 3, 4, 1, 2))
 
 
 def cuda_time(fn, reps: int = 5, warmup: int = 2) -> float:
@@ -152,6 +162,53 @@ def check_grouped_conv(torch, gc, F):
                         raise SystemExit(f"{name} disagrees with its plain "
                                          f"version: {row}")
     return rows, summary
+
+
+def check_conv_edges(torch, gc):
+    """dX and dW against their plain versions at the edge geometries, f32
+    and bf16, same tolerances; then two bf16 dW calls at layer 1, scale 0
+    must be bitwise equal."""
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for b, t, cin, cout, k, s, pad, g in EDGE_GEOMETRIES:
+        t_out = gc.out_length(t, k, s, pad, pad)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            x = torch.randn(b, cin, t, device="cuda", generator=gen).to(dtype)
+            w = torch.randn(cout, cin // g, k, device="cuda",
+                            generator=gen).to(dtype)
+            dy = torch.randn(b, cout, t_out, device="cuda",
+                             generator=gen).to(dtype)
+            pairs = {"grouped_conv_dx": (gc.conv_dx(dy, w, s, pad, t, g),
+                                         gc.conv_dx_plain(dy, w, s, pad, t, g)),
+                     "grouped_conv_dw": (
+                         gc.conv_dw(x, dy, k, s, pad, pad, g),
+                         gc.conv_dw_plain(x, dy, k, s, pad, pad, g))}
+            for name, (got, want) in pairs.items():
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                rel = err / max(want.float().abs().max().item(), 1e-30)
+                row = {"kernel": name, "geometry": [b, t, cin, cout, k, s, pad, g],
+                       "dtype": dname, "max_abs_err": err, "max_rel_err": rel,
+                       "tol": TOL[dname], "ok": rel <= TOL[dname]}
+                rows.append(row)
+                print(f"[edge] {name} {row['geometry']} {dname}: rel "
+                      f"{rel:.3e} (tol {TOL[dname]:g})", flush=True)
+                if not row["ok"]:
+                    raise SystemExit(f"{name} disagrees with its plain "
+                                     f"version: {row}")
+    cin, cout, k, s, g, pad = GROUPED_LAYERS[0]
+    x = torch.randn(PAIRED_BATCH, cin, CHUNK, device="cuda",
+                    generator=gen).bfloat16()
+    dy = torch.randn(PAIRED_BATCH, cout, gc.out_length(CHUNK, k, s, pad, pad),
+                     device="cuda", generator=gen).bfloat16()
+    same = torch.equal(gc.conv_dw(x, dy, k, s, pad, pad, g),
+                       gc.conv_dw(x, dy, k, s, pad, pad, g))
+    print(f"[edge] grouped_conv_dw bf16 layer1 scale0 twice: bitwise equal "
+          f"{same}", flush=True)
+    if not same:
+        raise SystemExit("conv_dw is not deterministic")
+    return {"rows": rows, "dw_bitwise_equal": same}
 
 
 def check_adamw(torch, fa, models):
@@ -276,6 +333,7 @@ def main() -> int:
     report = {"card": card, "build_s": build_s}
     conv_rows, conv_summary = check_grouped_conv(torch, gc, F)
     report["conv"] = conv_rows
+    report["conv_edges"] = check_conv_edges(torch, gc)
 
     cfg, models, state, step, batch = tgan.main_path(seed=0)
     adamw_rows, adamw_summary = check_adamw(torch, fa, models)
@@ -330,13 +388,20 @@ def main() -> int:
               "grouped_conv_dw": "ste_gan_torch/csrc/grouped_conv.cu",
               "fused_adamw": "ste_gan_torch/csrc/adamw.cu"}
     replaces = {"grouped_conv_fwd": "ste_gan_tpu/ops/pallas_conv.py:147",
-                "grouped_conv_dx": "ste_gan_tpu/ops/pallas_conv.py:147",
+                "grouped_conv_dx": "ste_gan_tpu/ops/pallas_conv.py:282",
                 "grouped_conv_dw": "ste_gan_tpu/ops/pallas_conv.py:158",
                 "fused_adamw": "ste_gan_tpu/ops/fused_adamw.py:49"}
+    #: The CUDA kernels each wrapper launches on the main path (bf16).
+    cuda_kernels = {"grouped_conv_fwd": "conv_fwd_kernel",
+                    "grouped_conv_dx": "conv_dx_kernel",
+                    "grouped_conv_dw": "conv_dw_partial_kernel + "
+                                       "conv_dw_reduce_kernel",
+                    "fused_adamw": "adamw_multi_tensor_kernel"}
     summaries = dict(conv_summary, fused_adamw=adamw_summary)
     kernels = [{"name": name, "route": "cuda", "source": source[name],
-                "replaces": replaces[name], "launches": launches[name],
-                **summaries[name]} for name in counters]
+                "kernel": cuda_kernels[name], "replaces": replaces[name],
+                "launches": launches[name], **summaries[name]}
+               for name in counters]
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

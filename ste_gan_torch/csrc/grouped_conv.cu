@@ -1,38 +1,30 @@
-// Grouped 1-D convolution for Hopper (sm_90a): forward (also used for the
-// data gradient) and weight gradient, CUDA C++ behind a plain C interface.
+// Grouped 1-D convolution for Hopper (sm_90a): forward, data gradient (dX)
+// and weight gradient (dW), CUDA C++ behind a plain C interface.
 //
 // Replaces the Pallas TPU kernels of ste_gan_tpu/ops/pallas_conv.py:
-//   * conv_fwd_kernel    <- _fwd_kernel (:147-155) via _run_fwd (:189-208),
-//                           and the dX pass of _conv_core_bwd (:282-304),
-//                           which reruns the forward on stride-dilated dy
-//                           with tap-flipped, in/out-transposed weights;
+//   * conv_fwd_kernel    <- _fwd_kernel (:147-155) via _run_fwd (:189-208).
+//                           For f32 operands it also computes dX the way
+//                           _conv_core_bwd (:282-304) does: the forward at
+//                           stride 1 on stride-dilated dy with tap-flipped,
+//                           in/out-transposed weights.
+//   * conv_dx_kernel     <- the dX pass of _conv_core_bwd (:282-304), bf16.
 //   * conv_dw_partial_kernel + conv_dw_reduce_kernel
-//                        <- _dw_kernel (:158-174) via _run_dw (:211-234).
+//                        <- _dw_kernel (:158-174) via _run_dw (:211-234),
+//                           bf16; conv_dw_partial_f32_kernel is the f32
+//                           route, on the CUDA cores.
 //
-// Layout is PyTorch's: x [B, Cin, Tin], y [B, Cout, Tout]; output channels
-// form G consecutive blocks of og = Cout/G. The forward takes its weights
-// arranged as [G, K, Cin/G, og] (the wrapper permutes PyTorch's
-// [Cout, Cin/G, K], a copy of under a megabyte), so that staging them is a
-// contiguous read; the weight gradient is written as [Cout, Cin/G, K]. Operands are f32 or
-// bf16; every sum is accumulated in f32 and the result is written in the
-// operand type.
+// Layout is PyTorch's: x [B, Cin, Tin], y and dy [B, Cout, Tout]; output
+// channels form G consecutive blocks of og = Cout/G, input channels blocks
+// of cg = Cin/G. dW is written as [Cout, cg, K]. Every sum is accumulated in
+// f32 and the result is written in the operand type. The bf16 kernels run
+// on the tensor cores (mma.sync.m16n8k16, bf16 in, f32 accumulate, operands
+// loaded from shared memory with ldmatrix); the f32 kernels stay exact f32
+// on the CUDA cores (no TF32).
 //
-// What bounds it: at the scale discriminators' shapes (K 37, 16-32 input
-// channels per group) a forward does ~2.4k FLOP per output element on a few
-// bytes of input, so it is bound by arithmetic, not by device memory. This
-// first version does the arithmetic on the CUDA cores in f32 (no tensor
-// cores), so its bound is far below the card's bf16 peak. The design keeps
-// the operands in shared memory: each block stages the input window of one
-// (batch row, time tile, group) once and streams that group's weights through
-// shared memory a few taps at a time, and every thread accumulates a 4x4 tile
-// of (time, channel) outputs in registers. The TPU kernel's block-diagonal
-// slab (padding groups up to the MXU's 128 lanes) is not carried over: each
-// block computes its own group only.
-//
-// The weight gradient reduces over batch x time, which the TPU ran as a
-// sequential grid. Here each block sums its own slice of batch x time into a
-// partial [Cout, Cin/G, K] slab and a second kernel adds the slabs in a fixed
-// order, so the result is deterministic (no atomics).
+// What bounds them: at the scale discriminators' shapes (K 37, cg 16-32,
+// og 32-64) each output element takes ~2.4k FLOP of a few bytes of input, so
+// forward, dX and dW are bound by arithmetic, and in bf16 by the tensor-core
+// rate. Each section below says what its design does about it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,22 +32,93 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+typedef __nv_bfloat16 bf16;
+
+constexpr int kThreads = 256;  // 8 warps in every kernel here
+constexpr int kWarps = kThreads / 32;
 constexpr int kTM = 4;  // time rows per thread (forward)
 constexpr int kTN = 4;  // output channels per thread (forward)
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
   return __float2bfloat16(v);
 }
 
-// Forward. Block = (time tile of BM outputs, group x channel tile of BN, batch
-// row). The input window of the tile ([cg][win_len] floats) is staged once;
-// weights are staged kt taps at a time as [kt][cg][BN].
+// ---------------------------------------------------------------------------
+// Tensor-core and async-copy primitives (sm_80+ PTX, run on sm_90a)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 b16 matrices; lane l gives the row address of matrix l / 8.
+__device__ __forceinline__ void ldsm_x4(const bf16* p, uint32_t& r0, uint32_t& r1,
+                                        uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(const bf16* p, uint32_t& r0, uint32_t& r1,
+                                              uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// d += a (16x16, row) * b (16x8, col); bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most one committed group is still in flight.
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack2(unsigned short lo, unsigned short hi) {
+  return (uint32_t)lo | ((uint32_t)hi << 16);
+}
+
+// Gathers src[0], src[ld], ..., src[7 * ld] (bf16 bits; the first n_ok of
+// them, zeros after) into one 16-byte shared-memory store: 8 channels of
+// one time step, transposed to channel-last on the way in.
+__device__ __forceinline__ void store8(bf16* dst, const unsigned short* src, int ld,
+                                       int n_ok) {
+  unsigned short v[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = e < n_ok ? src[(size_t)e * ld] : 0;
+  *reinterpret_cast<uint4*>(dst) = make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]),
+                                              pack2(v[4], v[5]), pack2(v[6], v[7]));
+}
+
+// ---------------------------------------------------------------------------
+// Forward (f32 and bf16), CUDA cores. Block = (time tile of BM outputs,
+// group x channel tile of BN, batch row). The input window of the tile
+// ([cg][win_len] floats) is staged once; weights are staged kt taps at a
+// time as [kt][cg][BN]; each thread keeps a 4x4 (time, channel) tile.
+// ---------------------------------------------------------------------------
+
 template <typename T, int BN>
 __global__ void __launch_bounds__(kThreads)
 conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
@@ -133,21 +196,337 @@ conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict_
   }
 }
 
-// Weight gradient, first pass. Block = (tap tile of KT taps, group, chunk of
-// the flattened batch x time rows). Outputs of the block: M = kt*cg rows
-// (tap, input channel) by N = og columns; thread (ty, tx) owns rows
-// ty + NY*i and columns tx + NX*j. Rows of batch x time are staged BT at a
-// time: xs[BT][M+1] and dys[BT][N+1] (rows padded against bank conflicts);
-// the (batch, time) of each staged row is computed once per tile.
-constexpr int kBT = 32;
+// ---------------------------------------------------------------------------
+// dX in bf16: a polyphase transposed conv on the tensor cores.
+//
+// dx[b, c, t] = sum_{o, j : t = u*s + j - pad_l} dy[b, o, u] * w[o, c, j].
+// Split t by phase r = t mod s, t = s*q + r. Phase r receives only the taps
+// j = j0_r + s*m (j0_r = (r + pad_l) mod s, m < n_r), at u = q + d_r - m
+// (d_r = (r + pad_l) div s): a stride-1 correlation of dy with n_r taps and
+// per group a GEMM of M = q rows, N = cg, reduction og x n_r. No dilated dy
+// is built and no zero is multiplied (the forward-on-dilated-dy route does
+// half its work on zeros at stride 2).
+//
+// What bounds it: arithmetic (104 GFLOP per paired pass of the main path on
+// a few MB), so the design feeds the tensor cores from shared memory:
+//   * Block = (time tile of s*bq outputs, all phases; group x tile of NB
+//     input channels; batch row). Its dy window is staged once per chunk of
+//     OC output channels, channel-last ([u][o], rows padded by 8 so that the
+//     8 row addresses of an ldmatrix fall in distinct banks), transposing on
+//     the way in. A tap is then a row offset, and every row address stays
+//     16-byte aligned, which a time-contiguous [o][u] tile would not be.
+//   * Weights are permuted once per call by the wrapper, zero-padded, to
+//     [G, n_ctiles, s, nmax, NB, og_pad] (per phase its taps in order), and
+//     streamed through a two-stage cp.async ring, mt taps of every phase per
+//     stage, so each weight element is staged once per block.
+//   * Warp = one (phase, WM rows) unit with all NB columns: per 16-deep step
+//     it loads MTM A fragments and NT/2 B fragments with ldmatrix.x4 and
+//     issues MTM*NT mma.sync (warp tile 32x32 or 64x16).
+//   * The f32 accumulators leave through shared memory as a [c][t] tile, so
+//     that the stores to dx are contiguous in time.
+// A phase with no taps (K < s) writes zeros; trailing inputs that a strided
+// conv drops read only dy rows past Tout, which stage as zeros.
+// ---------------------------------------------------------------------------
+
+struct DxParams {  // field order = _DX_FIELDS in ops/grouped_conv.py
+  int B, Cin, Cout, Tin, Tout, K, stride, pad_l, G;
+  int cg, og, n_ctiles, og_pad, n_ochunks;
+  int bq, upp, rounds, nmax, dmin, win_rows;
+  int mt, n_mchunks, out_off, so_stride;
+};
+
+template <int MTM, int NT, int OC>
+__global__ void __launch_bounds__(kThreads, 2)
+conv_dx_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ wph,
+               bf16* __restrict__ dx, const DxParams p) {
+  constexpr int WM = MTM * 16, NB = NT * 8, OCP = OC + 8, PIECES = OC / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* win = reinterpret_cast<bf16*>(smem_raw);              // [win_rows][OCP]
+  bf16* ring = win + p.win_rows * OCP;                         // [2][s][mt][NB][OCP]
+  float* sout = reinterpret_cast<float*>(smem_raw + p.out_off);  // [NB][so_stride]
+  const int s = p.stride;
+  const int stage = s * p.mt * NB * OCP;
+  const int g = blockIdx.y / p.n_ctiles, ct = blockIdx.y - g * p.n_ctiles;
+  const int b = blockIdx.z, q0 = blockIdx.x * p.bq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int u_lo = q0 + p.dmin - (p.nmax - 1);
+  const unsigned short* dyb = reinterpret_cast<const unsigned short*>(dy) +
+                              ((size_t)b * p.Cout + (size_t)g * p.og) * p.Tout;
+  const bf16* wg = wph + (size_t)blockIdx.y * s * p.nmax * NB * p.og_pad;
+  const int n_chunks = p.n_ochunks * p.n_mchunks;
+
+  // Weight chunk ch (o-chunk ch / n_mchunks, taps m0..m0+mt of every phase)
+  // into ring slot ch & 1; taps past nmax are never read.
+  auto stage_weights = [&](int ch) {
+    const int oc0 = (ch / p.n_mchunks) * OC, m0 = (ch % p.n_mchunks) * p.mt;
+    bf16* dst = ring + (ch & 1) * stage;
+    for (int i = threadIdx.x; i < s * p.mt * NB * PIECES; i += kThreads) {
+      const int row = i / PIECES, piece = i - row * PIECES;
+      const int n = row % NB, rm = row / NB;
+      const int r = rm / p.mt, m = m0 + rm - r * p.mt;
+      if (m < p.nmax)
+        cp_async16(dst + row * OCP + piece * 8,
+                   wg + ((size_t)(r * p.nmax + m) * NB + n) * p.og_pad + oc0 + piece * 8);
+    }
+  };
+  // dy rows u_lo.. of output channels oc0..oc0+OC, channel-last; zeros
+  // outside [0, Tout) and past og. The pieces of a row are unrolled, so
+  // their loads can be issued ahead of the stores.
+  auto stage_window = [&](int oc0) {
+    for (int row = threadIdx.x; row < p.win_rows; row += kThreads) {
+      const int u = u_lo + row;
+      const bool in = u >= 0 && u < p.Tout;
+#pragma unroll
+      for (int c8 = 0; c8 < PIECES; ++c8)
+        store8(win + row * OCP + c8 * 8, dyb + (size_t)(oc0 + c8 * 8) * p.Tout + u,
+               p.Tout, in ? p.og - (oc0 + c8 * 8) : 0);
+    }
+  };
+
+  for (int round = 0; round < p.rounds; ++round) {
+    // This warp's unit: phase r, rows qg*WM.. of the tile (idle if r >= s).
+    const int unit = warp + kWarps * round;
+    const int r = unit / p.upp, qg = unit - r * p.upp;
+    int nr = 0, dr = 0;
+    if (r < s) {
+      const int j0 = (r + p.pad_l) % s;
+      nr = j0 < p.K ? (p.K - j0 + s - 1) / s : 0;
+      dr = (r + p.pad_l) / s;
+    }
+    float acc[MTM][NT][4];
+#pragma unroll
+    for (int i = 0; i < MTM; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+    stage_weights(0);
+    cp_async_commit();
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      const int mc = ch % p.n_mchunks;
+      if (mc == 0) {
+        __syncthreads();  // the previous o-chunk's window is consumed
+        stage_window((ch / p.n_mchunks) * OC);
+      }
+      if (ch + 1 < n_chunks) stage_weights(ch + 1);
+      cp_async_commit();
+      cp_async_wait1();  // chunk ch has landed
+      __syncthreads();
+      const bf16* ws = ring + (ch & 1) * stage;
+      const int m0 = mc * p.mt;
+      for (int mm = 0; mm < p.mt; ++mm) {
+        const int m = m0 + mm;
+        if (m >= nr) break;
+        const bf16* arow =
+            win + (qg * WM + dr - p.dmin + p.nmax - 1 - m + (lane & 15)) * OCP +
+            (lane >> 4) * 8;
+        const bf16* brow =
+            ws + ((r * p.mt + mm) * NB + (lane >> 4) * 8 + (lane & 7)) * OCP +
+            ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int ks = 0; ks < OC / 16; ++ks) {
+          uint32_t a[MTM][4], bb[NT][2];
+#pragma unroll
+          for (int i = 0; i < MTM; ++i)
+            ldsm_x4(arow + i * 16 * OCP + ks * 16, a[i][0], a[i][1], a[i][2], a[i][3]);
+#pragma unroll
+          for (int j = 0; j < NT / 2; ++j)
+            ldsm_x4(brow + j * 16 * OCP + ks * 16, bb[2 * j][0], bb[2 * j][1],
+                    bb[2 * j + 1][0], bb[2 * j + 1][1]);
+#pragma unroll
+          for (int i = 0; i < MTM; ++i)
+#pragma unroll
+            for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a[i], bb[j][0], bb[j][1]);
+        }
+      }
+      __syncthreads();  // ring slot ch & 1 is free for chunk ch + 2
+    }
+    if (r < s) {
+#pragma unroll
+      for (int i = 0; i < MTM; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = qg * WM + i * 16 + (lane >> 2) + (e >> 1) * 8;
+            const int c = j * 8 + 2 * (lane & 3) + (e & 1);
+            sout[c * p.so_stride + q * s + r] = acc[i][j][e];
+          }
+    }
+  }
+  __syncthreads();
+  const int tt = s * p.bq, t0 = q0 * s;
+  for (int c = 0; c < NB; ++c) {
+    const int cc = ct * NB + c;
+    if (cc >= p.cg) break;
+    bf16* dxr = dx + ((size_t)b * p.Cin + (size_t)g * p.cg + cc) * p.Tin;
+    for (int tl = threadIdx.x; tl < tt && t0 + tl < p.Tin; tl += kThreads)
+      dxr[t0 + tl] = __float2bfloat16(sout[c * p.so_stride + tl]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dW in bf16: an implicit GEMM over rows on the tensor cores.
+//
+// dw[o, c, j] = sum_{b, u} dy[b, o, u] * x[b, c, u*s + j - pad_l]: per group
+// a GEMM of M = og, N = (tap, c), reduction over the B x Tout rows.
+//
+// What bounds it: arithmetic again (104 GFLOP per paired pass). The design:
+//   * Block = (tile of kt taps; group x tile of OB output channels x tile of
+//     CB input channels; chunk of row tiles). A row tile is kBT time steps of
+//     one batch row, so the x elements all its taps need are one contiguous
+//     span, x[u0*s + k0 - pad_l ...]. That span is staged once per row tile,
+//     channel-last and split by phase ([t mod s][t div s][c], rows padded by
+//     8): tap j of row u is then row u + (j - k0) div s of plane
+//     (j - k0) mod s, consecutive rows are consecutive u, and an
+//     ldmatrix.trans of 8 rows hits 8 distinct bank groups. No element is
+//     gathered with a division, and no x element is loaded once per tap.
+//   * dy is staged as [o][u] (time-contiguous, as it lies), the A operand
+//     of a row-major MMA.
+//   * kBT = 128 rows between barriers; each warp owns all OB rows and 32
+//     columns (one tap of 32 channels, or two taps of 16): per 16 rows it
+//     loads MW + 2 fragments and issues 4*MW mma.sync.
+//   * Determinism: each block sums its fixed chunk of row tiles into its own
+//     f32 partial slab [Cout, K, cg]; conv_dw_reduce_kernel adds the slabs in
+//     chunk order. No atomics.
+// ---------------------------------------------------------------------------
+
+constexpr int kBT = 128;  // rows (time steps of one batch row) per staged tile
+
+struct DwParams {  // field order = _DW_FIELDS in ops/grouped_conv.py
+  int B, Cin, Cout, Tin, Tout, K, stride, pad_l, G;
+  int cg, og, n_otiles, n_ctiles, kt, tiles_per_b, n_rtiles, tiles_per_chunk, V;
+};
+
+template <int MW, int CB>
+__global__ void __launch_bounds__(kThreads, 2)
+conv_dw_partial_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                       float* __restrict__ part, const DwParams p) {
+  constexpr int OB = MW * 16, XCP = CB + 8, DYP = kBT + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* dys = reinterpret_cast<bf16*>(smem_raw);  // [OB][DYP]
+  bf16* xw = dys + OB * DYP;                        // [s][V][XCP]
+  const int s = p.stride;
+  const int k0 = blockIdx.x * p.kt;
+  const int ct = blockIdx.y % p.n_ctiles;
+  const int ot = (blockIdx.y / p.n_ctiles) % p.n_otiles;
+  const int g = blockIdx.y / (p.n_ctiles * p.n_otiles);
+  const int chunk = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rt_begin = chunk * p.tiles_per_chunk;
+  const int rt_end = min(p.n_rtiles, rt_begin + p.tiles_per_chunk);
+  const unsigned short* xh = reinterpret_cast<const unsigned short*>(x);
+  const unsigned short* dyh = reinterpret_cast<const unsigned short*>(dy);
+
+  // The warp's two column pairs (16 columns each): tap, and where its row
+  // u = 0 lies in the x window.
+  bool pair_ok[2];
+  int pair_off[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int col0 = warp * 32 + half * 16;
+    const int jj = col0 / CB;
+    pair_ok[half] = k0 + jj < p.K;
+    pair_off[half] = ((jj % s) * p.V + jj / s) * XCP + col0 % CB;
+  }
+  float acc[MW][4][4];
+#pragma unroll
+  for (int i = 0; i < MW; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (int rt = rt_begin; rt < rt_end; ++rt) {
+    const int bb = rt / p.tiles_per_b;
+    const int u0 = (rt - bb * p.tiles_per_b) * kBT;
+    __syncthreads();  // the previous tile is consumed
+    // Each thread stages two adjacent rows u of every 4th output channel,
+    // then the channels of its x window rows; the loops are unrolled so that
+    // loads can be issued ahead of the stores.
+    const unsigned short* dyb =
+        dyh + ((size_t)bb * p.Cout + (size_t)g * p.og + ot * OB) * p.Tout;
+    {
+      const int uu = 2 * (threadIdx.x % (kBT / 2)), o0 = threadIdx.x / (kBT / 2);
+      const int u = u0 + uu;
+#pragma unroll
+      for (int i = 0; i < OB / 4; ++i) {
+        const int o = o0 + 4 * i;
+        const bool ok = ot * OB + o < p.og;
+        const unsigned short lo = (ok && u < p.Tout) ? dyb[(size_t)o * p.Tout + u] : 0;
+        const unsigned short hi =
+            (ok && u + 1 < p.Tout) ? dyb[(size_t)o * p.Tout + u + 1] : 0;
+        *reinterpret_cast<uint32_t*>(dys + o * DYP + uu) = pack2(lo, hi);
+      }
+    }
+    const int t_base = u0 * s + k0 - p.pad_l;
+    const unsigned short* xb =
+        xh + ((size_t)bb * p.Cin + (size_t)g * p.cg + ct * CB) * p.Tin;
+    for (int pv = threadIdx.x; pv < s * p.V; pv += kThreads) {
+      const int t = t_base + pv;
+      const bool in = t >= 0 && t < p.Tin;
+      bf16* dst = xw + ((pv % s) * p.V + pv / s) * XCP;
+#pragma unroll
+      for (int c8 = 0; c8 < CB / 8; ++c8)
+        store8(dst + c8 * 8, xb + (size_t)(c8 * 8) * p.Tin + t, p.Tin,
+               in ? p.cg - (ct * CB + c8 * 8) : 0);
+    }
+    __syncthreads();
+    const bf16* arow = dys + (lane & 15) * DYP + (lane >> 4) * 8;
+    const int brow = ((lane & 7) + ((lane >> 3) & 1) * 8) * XCP + (lane >> 4) * 8;
+#pragma unroll 2
+    for (int ks = 0; ks < kBT / 16; ++ks) {
+      uint32_t a[MW][4];
+#pragma unroll
+      for (int i = 0; i < MW; ++i)
+        ldsm_x4(arow + i * 16 * DYP + ks * 16, a[i][0], a[i][1], a[i][2], a[i][3]);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (!pair_ok[half]) continue;
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_trans(xw + pair_off[half] + ks * 16 * XCP + brow, b0, b1, b2, b3);
+#pragma unroll
+        for (int i = 0; i < MW; ++i) {
+          mma_bf16(acc[i][2 * half], a[i], b0, b1);
+          mma_bf16(acc[i][2 * half + 1], a[i], b2, b3);
+        }
+      }
+    }
+  }
+
+  float* pc = part + (size_t)chunk * p.Cout * p.K * p.cg;
+#pragma unroll
+  for (int i = 0; i < MW; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int o = ot * OB + i * 16 + (lane >> 2) + (e >> 1) * 8;
+        const int col = warp * 32 + j * 8 + 2 * (lane & 3) + (e & 1);
+        const int tap = k0 + col / CB, c = ct * CB + col % CB;
+        if (o < p.og && tap < p.K && c < p.cg)
+          pc[((size_t)(g * p.og + o) * p.K + tap) * p.cg + c] = acc[i][j][e];
+      }
+}
+
+// ---------------------------------------------------------------------------
+// dW in f32, CUDA cores. Block = (tap tile of KT taps, group, chunk of the
+// flattened batch x time rows). Outputs of the block: M = kt*cg rows (tap,
+// input channel) by N = og columns; thread (ty, tx) owns rows ty + NY*i and
+// columns tx + NX*j. Rows are staged kBTf at a time: xs[kBTf][M+1] and
+// dys[kBTf][N+1] (padded against bank conflicts). Writes the same partial
+// slab layout as the bf16 kernel.
+// ---------------------------------------------------------------------------
+
+constexpr int kBTf = 32;
 constexpr int kDwT = 4;  // max rows/columns per thread
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-conv_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                       float* __restrict__ part, int B, int Tin, int Cin, int K,
-                       int Cout, int stride, int pad_l, int G, int Tout, int KT,
-                       int NX, int rows_per_chunk) {
+conv_dw_partial_f32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+                           float* __restrict__ part, int B, int Tin, int Cin, int K,
+                           int Cout, int stride, int pad_l, int G, int Tout, int KT,
+                           int NX, int rows_per_chunk) {
   extern __shared__ float smem[];
   const int cg = Cin / G, og = Cout / G;
   const int k0 = blockIdx.x * KT;
@@ -157,9 +536,9 @@ conv_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   const int M = kt * cg, N = og;
   const int NY = kThreads / NX;
   const int xs_ld = M + 1, dys_ld = N + 1;
-  float* xs = smem;                          // [kBT][xs_ld]
-  float* dys = smem + kBT * (KT * cg + 1);   // [kBT][dys_ld]
-  __shared__ int row_b[kBT], row_t[kBT];
+  float* xs = smem;                           // [kBTf][xs_ld]
+  float* dys = smem + kBTf * (KT * cg + 1);   // [kBTf][dys_ld]
+  __shared__ int row_b[kBTf], row_t[kBTf];
 
   const long long R = (long long)B * Tout;
   const long long r_begin = (long long)chunk * rows_per_chunk;
@@ -172,36 +551,34 @@ conv_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy,
 #pragma unroll
     for (int j = 0; j < kDwT; ++j) acc[i][j] = 0.f;
 
-  for (long long r0 = r_begin; r0 < r_end; r0 += kBT) {
+  for (long long r0 = r_begin; r0 < r_end; r0 += kBTf) {
     __syncthreads();
-    if (threadIdx.x < kBT) {
+    if (threadIdx.x < kBTf) {
       const long long r = r0 + threadIdx.x;
       const int bb = r < r_end ? (int)(r / Tout) : -1;
       row_b[threadIdx.x] = bb;
       row_t[threadIdx.x] = bb < 0 ? 0 : (int)(r - (long long)bb * Tout);
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < kBT * M; i += kThreads) {
-      const int c = i / (kBT * kt);
-      const int rem = i - c * kBT * kt;
+    for (int i = threadIdx.x; i < kBTf * M; i += kThreads) {
+      const int c = i / (kBTf * kt);
+      const int rem = i - c * kBTf * kt;
       const int rt = rem / kt, kk = rem - rt * kt;
       const int bb = row_b[rt];
       const int ti = row_t[rt] * stride + k0 + kk - pad_l;
       float v = 0.f;
-      if (bb >= 0 && ti >= 0 && ti < Tin)
-        v = to_f(x[((size_t)bb * Cin + (size_t)g * cg + c) * Tin + ti]);
+      if (bb >= 0 && ti >= 0 && ti < Tin) v = x[((size_t)bb * Cin + (size_t)g * cg + c) * Tin + ti];
       xs[rt * xs_ld + kk * cg + c] = v;
     }
-    for (int i = threadIdx.x; i < kBT * N; i += kThreads) {
-      const int n = i / kBT, rt = i - n * kBT;
+    for (int i = threadIdx.x; i < kBTf * N; i += kThreads) {
+      const int n = i / kBTf, rt = i - n * kBTf;
       const int bb = row_b[rt];
       dys[rt * dys_ld + n] =
-          bb >= 0 ? to_f(dy[((size_t)bb * Cout + (size_t)g * og + n) * Tout + row_t[rt]])
-                  : 0.f;
+          bb >= 0 ? dy[((size_t)bb * Cout + (size_t)g * og + n) * Tout + row_t[rt]] : 0.f;
     }
     __syncthreads();
 #pragma unroll 4
-    for (int rt = 0; rt < kBT; ++rt) {
+    for (int rt = 0; rt < kBTf; ++rt) {
       float av[kDwT], bv[kDwT];
 #pragma unroll
       for (int i = 0; i < kDwT; ++i) {
@@ -220,7 +597,7 @@ conv_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     }
   }
 
-  float* pc = part + (size_t)chunk * Cout * cg * K;
+  float* pc = part + (size_t)chunk * Cout * K * cg;
 #pragma unroll
   for (int i = 0; i < kDwT; ++i) {
     const int m = ty + NY * i;
@@ -230,22 +607,42 @@ conv_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     for (int j = 0; j < kDwT; ++j) {
       const int n = tx + NX * j;
       if (n >= N) continue;
-      pc[((size_t)(g * og + n) * cg + c) * K + k0 + kk] = acc[i][j];
+      pc[((size_t)(g * og + n) * K + k0 + kk) * cg + c] = acc[i][j];
     }
   }
 }
 
-// Weight gradient, second pass: add the chunks' slabs in a fixed order.
+// dW, second pass: add the chunks' [Cout, K, cg] slabs in chunk order and
+// write [Cout, cg, K] in the operand type.
 template <typename T>
 __global__ void conv_dw_reduce_kernel(const float* __restrict__ part, T* __restrict__ dw,
-                                      int n_chunks, long long total) {
+                                      int n_chunks, int K, int cg, long long total) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
        i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int c = 0; c < n_chunks; ++c) s += part[(size_t)c * total + i];
-    dw[i] = from_f<T>(s);
+    float sum = 0.f;
+    for (int c = 0; c < n_chunks; ++c) sum += part[(size_t)c * total + i];
+    const int c = (int)(i % cg);
+    const long long oj = i / cg;
+    const int j = (int)(oj % K);
+    const long long o = oj / K;
+    dw[((size_t)o * cg + c) * K + j] = from_f<T>(sum);
   }
 }
+
+template <typename T>
+int launch_reduce(const float* part, void* dw, int n_chunks, int Cout, int K, int cg,
+                  cudaStream_t stream) {
+  const long long total = (long long)Cout * K * cg;
+  const long long want = (total + 255) / 256;
+  const int blocks = want < 4096 ? (int)want : 4096;
+  conv_dw_reduce_kernel<T><<<blocks, 256, 0, stream>>>(part, static_cast<T*>(dw),
+                                                       n_chunks, K, cg, total);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Launchers
+// ---------------------------------------------------------------------------
 
 template <typename T, int BN>
 int launch_fwd(const void* x, const void* w, void* y, int B, int Tin, int Cin, int K,
@@ -276,26 +673,28 @@ int dispatch_fwd(int bn, const void* x, const void* w, void* y, int B, int Tin, 
   }
 }
 
-template <typename T>
-int launch_dw(const void* x, const void* dy, float* part, void* dw, int B, int Tin,
-              int Cin, int K, int Cout, int stride, int pad_l, int G, int Tout, int KT,
-              int NX, int n_chunks, int rows_per_chunk, int smem_bytes,
-              cudaStream_t stream) {
-  auto kern = conv_dw_partial_kernel<T>;
+template <int MTM, int NT, int OC>
+int launch_dx(const void* dy, const void* wph, void* dx, const DxParams& p, dim3 grid,
+              int smem_bytes, cudaStream_t stream) {
+  auto kern = conv_dx_kernel<MTM, NT, OC>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((K + KT - 1) / KT, G, n_chunks);
-  kern<<<grid, kThreads, smem_bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), part, B, Tin, Cin, K, Cout,
-      stride, pad_l, G, Tout, KT, NX, rows_per_chunk);
-  err = cudaGetLastError();
+  kern<<<grid, kThreads, smem_bytes, stream>>>(static_cast<const bf16*>(dy),
+                                               static_cast<const bf16*>(wph),
+                                               static_cast<bf16*>(dx), p);
+  return (int)cudaGetLastError();
+}
+
+template <int MW, int CB>
+int launch_dw(const void* x, const void* dy, float* part, const DwParams& p, dim3 grid,
+              int smem_bytes, cudaStream_t stream) {
+  auto kern = conv_dw_partial_kernel<MW, CB>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  const long long total = (long long)Cout * (Cin / G) * K;
-  const long long want = (total + 255) / 256;
-  const int blocks = want < 4096 ? (int)want : 4096;
-  conv_dw_reduce_kernel<T><<<blocks, 256, 0, stream>>>(part, static_cast<T*>(dw),
-                                                       n_chunks, total);
+  kern<<<grid, kThreads, smem_bytes, stream>>>(static_cast<const bf16*>(x),
+                                               static_cast<const bf16*>(dy), part, p);
   return (int)cudaGetLastError();
 }
 
@@ -313,27 +712,74 @@ int grouped_conv1d_fwd(const void* x, const void* w, void* y, int dtype, int bn,
     return dispatch_fwd<float>(bn, x, w, y, B, Tin, Cin, K, Cout, stride, pad_l, G,
                                Tout, KT, win_len, win_stride, smem_bytes, s);
   if (dtype == 1)
-    return dispatch_fwd<__nv_bfloat16>(bn, x, w, y, B, Tin, Cin, K, Cout, stride,
-                                       pad_l, G, Tout, KT, win_len, win_stride,
-                                       smem_bytes, s);
+    return dispatch_fwd<bf16>(bn, x, w, y, B, Tin, Cin, K, Cout, stride, pad_l, G,
+                              Tout, KT, win_len, win_stride, smem_bytes, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// part: f32 scratch of n_chunks * Cout * (Cin/G) * K; dw in the operand type.
-int grouped_conv1d_dw(const void* x, const void* dy, void* part, void* dw, int dtype,
-                      int B, int Tin, int Cin, int K, int Cout, int stride, int pad_l,
-                      int G, int Tout, int KT, int NX, int n_chunks,
-                      int rows_per_chunk, int smem_bytes, void* stream) {
+// bf16 dX. params: the DxParams fields in order; nb = input channels per
+// block (16 or 32), oc = output channels per chunk (16, 32 or 64).
+int grouped_conv1d_dx_bf16(const void* dy, const void* wph, void* dx, const int* params,
+                           int nb, int oc, int grid_x, int grid_y, int grid_z,
+                           int smem_bytes, void* stream) {
+  const DxParams& p = *reinterpret_cast<const DxParams*>(params);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* p = static_cast<float*>(part);
-  if (dtype == 0)
-    return launch_dw<float>(x, dy, p, dw, B, Tin, Cin, K, Cout, stride, pad_l, G, Tout,
-                            KT, NX, n_chunks, rows_per_chunk, smem_bytes, s);
-  if (dtype == 1)
-    return launch_dw<__nv_bfloat16>(x, dy, p, dw, B, Tin, Cin, K, Cout, stride, pad_l,
-                                    G, Tout, KT, NX, n_chunks, rows_per_chunk,
-                                    smem_bytes, s);
+  const dim3 grid(grid_x, grid_y, grid_z);
+  if (nb == 32) {
+    if (oc == 16) return launch_dx<2, 4, 16>(dy, wph, dx, p, grid, smem_bytes, s);
+    if (oc == 32) return launch_dx<2, 4, 32>(dy, wph, dx, p, grid, smem_bytes, s);
+    if (oc == 64) return launch_dx<2, 4, 64>(dy, wph, dx, p, grid, smem_bytes, s);
+  } else if (nb == 16) {
+    if (oc == 16) return launch_dx<4, 2, 16>(dy, wph, dx, p, grid, smem_bytes, s);
+    if (oc == 32) return launch_dx<4, 2, 32>(dy, wph, dx, p, grid, smem_bytes, s);
+    if (oc == 64) return launch_dx<4, 2, 64>(dy, wph, dx, p, grid, smem_bytes, s);
+  }
   return (int)cudaErrorInvalidValue;
+}
+
+// bf16 dW. params: the DwParams fields in order; ob = output channels per
+// block (16, 32 or 64), cb = input channels per block (16 or 32). part: f32
+// scratch of n_chunks * Cout * K * cg; dw: [Cout, cg, K] bf16.
+int grouped_conv1d_dw_bf16(const void* x, const void* dy, void* part, void* dw,
+                           const int* params, int ob, int cb, int grid_x, int grid_y,
+                           int n_chunks, int smem_bytes, void* stream) {
+  const DwParams& p = *reinterpret_cast<const DwParams*>(params);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pt = static_cast<float*>(part);
+  const dim3 grid(grid_x, grid_y, n_chunks);
+  int err = (int)cudaErrorInvalidValue;
+  if (cb == 32) {
+    if (ob == 16) err = launch_dw<1, 32>(x, dy, pt, p, grid, smem_bytes, s);
+    if (ob == 32) err = launch_dw<2, 32>(x, dy, pt, p, grid, smem_bytes, s);
+    if (ob == 64) err = launch_dw<4, 32>(x, dy, pt, p, grid, smem_bytes, s);
+  } else if (cb == 16) {
+    if (ob == 16) err = launch_dw<1, 16>(x, dy, pt, p, grid, smem_bytes, s);
+    if (ob == 32) err = launch_dw<2, 16>(x, dy, pt, p, grid, smem_bytes, s);
+    if (ob == 64) err = launch_dw<4, 16>(x, dy, pt, p, grid, smem_bytes, s);
+  }
+  if (err != 0) return err;
+  return launch_reduce<bf16>(pt, dw, n_chunks, p.Cout, p.K, p.cg, s);
+}
+
+// f32 dW. part: f32 scratch of n_chunks * Cout * K * (Cin/G).
+int grouped_conv1d_dw_f32(const void* x, const void* dy, void* part, void* dw, int B,
+                          int Tin, int Cin, int K, int Cout, int stride, int pad_l,
+                          int G, int Tout, int KT, int NX, int n_chunks,
+                          int rows_per_chunk, int smem_bytes, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pt = static_cast<float*>(part);
+  auto kern = conv_dw_partial_f32_kernel;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((K + KT - 1) / KT, G, n_chunks);
+  kern<<<grid, kThreads, smem_bytes, s>>>(static_cast<const float*>(x),
+                                          static_cast<const float*>(dy), pt, B, Tin,
+                                          Cin, K, Cout, stride, pad_l, G, Tout, KT, NX,
+                                          rows_per_chunk);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return launch_reduce<float>(pt, dw, n_chunks, Cout, K, Cin / G, s);
 }
 
 }  // extern "C"

@@ -27,11 +27,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_INTS = ctypes.POINTER(ctypes.c_int)  # a kernel's parameter struct of ints
 #: C signature (argument types) of every exported function, by library.
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "grouped_conv": {
         "grouped_conv1d_fwd": [_P, _P, _P] + [_I] * 15 + [_P],
-        "grouped_conv1d_dw": [_P, _P, _P, _P] + [_I] * 15 + [_P],
+        "grouped_conv1d_dx_bf16": [_P, _P, _P, _INTS] + [_I] * 6 + [_P],
+        "grouped_conv1d_dw_bf16": [_P, _P, _P, _P, _INTS] + [_I] * 6 + [_P],
+        "grouped_conv1d_dw_f32": [_P, _P, _P, _P] + [_I] * 14 + [_P],
     },
     "adamw": {
         "adamw_multi_tensor": [_P] * 7 + [_I, _I, _P, _P, _P],
