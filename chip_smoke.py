@@ -6,16 +6,18 @@
 Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``); build every CUDA
-   kernel of ``ste_gan_torch/csrc`` (one ``nvcc`` per source, in parallel);
+   kernel of ``ste_gan_torch/csrc`` (one ``nvcc`` per source, in parallel)
+   and print each compiled kernel's registers and spills (``ptxas -v``);
 2. each kernel, through the wrapper the main path calls (``conv_fwd``,
    ``conv_dx``, ``conv_dw``, ``fused_adamw_``), against its plain PyTorch
    version on the card, at the shapes of the main path: the grouped conv's
-   forward, dX and dW at all six
-   (layer, scale) geometries of the small scale discriminators on the paired
-   2B = 64 batch, in f32 (TF32 off) and bf16; dX and dW also at the edge
-   geometries of ``tests/test_torch_grouped_conv.py`` (strides 1/2/4, groups
-   1-16, down to one channel per group, odd lengths) and one with K < stride,
-   in both types; two bf16 dW calls must agree bit for bit; AdamW over
+   forward (bf16: ``conv_fwd_bf16_kernel``), dX and dW at all six (layer,
+   scale) geometries of the small scale discriminators on the paired
+   2B = 64 batch, in f32 (TF32 off) and bf16; forward, dX and dW also at
+   the edge geometries of ``tests/test_torch_grouped_conv.py`` (strides
+   1/2/4, groups 1-16, down to 2 input and 4 output channels per group, 128
+   output channels per group, odd lengths) and one with K < stride, in both
+   types; two bf16 dW calls must agree bit for bit; AdamW over
    generator- and discriminator-size parameter sets for 3 steps. Kernel,
    plain and library times come from CUDA events; the bound is the larger of
    bytes over 3.35 TB/s and operations over the peak rate for the operand
@@ -40,6 +42,7 @@ run outside a checkout of the repository. Details go to
 from __future__ import annotations
 
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -81,6 +84,33 @@ def bound_ms(nbytes: float, ops: float, dtype_name: str):
     t_ops = ops / PEAK_OPS_PER_S[dtype_name]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def ptxas_summary(log: str):
+    """One line per compiled kernel of an ``nvcc -Xptxas -v`` log: its name
+    and template integers, registers and shared memory, stack and spills."""
+    lines, name, spill = [], "?", ""
+    for ln in log.splitlines():
+        entry = re.search(r"entry function '(\S+)'", ln)
+        if entry:
+            # The kernel's name ends in "_kernel" and is prefixed by its
+            # length in the mangled name.
+            mangled = name = entry.group(1)
+            spill = ""
+            end = mangled.find("_kernel") + len("_kernel")
+            for start in range(end - len("_kernel"), 0, -1):
+                n = str(end - start)
+                if mangled[max(0, start - len(n)):start] == n:
+                    name = mangled[start:end]
+                    break
+            ints = re.findall(r"Li(\d+)E", mangled)
+            if ints:
+                name += f"<{','.join(ints)}>"
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln:
+            lines.append(f"{name}: {ln.split(':', 1)[-1].strip()}; {spill}")
+    return lines
 
 
 def check_grouped_conv(torch, gc, F):
@@ -165,9 +195,9 @@ def check_grouped_conv(torch, gc, F):
 
 
 def check_conv_edges(torch, gc):
-    """dX and dW against their plain versions at the edge geometries, f32
-    and bf16, same tolerances; then two bf16 dW calls at layer 1, scale 0
-    must be bitwise equal."""
+    """Forward, dX and dW against their plain versions at the edge
+    geometries, f32 and bf16, same tolerances; then two bf16 dW calls at
+    layer 1, scale 0 must be bitwise equal."""
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(2)
     for b, t, cin, cout, k, s, pad, g in EDGE_GEOMETRIES:
@@ -179,7 +209,10 @@ def check_conv_edges(torch, gc):
                             generator=gen).to(dtype)
             dy = torch.randn(b, cout, t_out, device="cuda",
                              generator=gen).to(dtype)
-            pairs = {"grouped_conv_dx": (gc.conv_dx(dy, w, s, pad, t, g),
+            pairs = {"grouped_conv_fwd": (
+                         gc.conv_fwd(x, w, s, pad, pad, g),
+                         gc.conv_fwd_plain(x, w, s, pad, pad, g)),
+                     "grouped_conv_dx": (gc.conv_dx(dy, w, s, pad, t, g),
                                          gc.conv_dx_plain(dy, w, s, pad, t, g)),
                      "grouped_conv_dw": (
                          gc.conv_dw(x, dy, k, s, pad, pad, g),
@@ -327,8 +360,8 @@ def main() -> int:
     build_s = build.build_all()
     print(f"[build] kernels built in {build_s:.1f} s", flush=True)
     for name, log in build.build_logs.items():
-        print(f"[build] {name}: " + " | ".join(
-            ln.strip() for ln in log.splitlines() if "Used" in ln), flush=True)
+        for line in ptxas_summary(log):
+            print(f"[build] {name}: {line}", flush=True)
 
     report = {"card": card, "build_s": build_s}
     conv_rows, conv_summary = check_grouped_conv(torch, gc, F)
@@ -392,7 +425,7 @@ def main() -> int:
                 "grouped_conv_dw": "ste_gan_tpu/ops/pallas_conv.py:158",
                 "fused_adamw": "ste_gan_tpu/ops/fused_adamw.py:49"}
     #: The CUDA kernels each wrapper launches on the main path (bf16).
-    cuda_kernels = {"grouped_conv_fwd": "conv_fwd_kernel",
+    cuda_kernels = {"grouped_conv_fwd": "conv_fwd_bf16_kernel",
                     "grouped_conv_dx": "conv_dx_kernel",
                     "grouped_conv_dw": "conv_dw_partial_kernel + "
                                        "conv_dw_reduce_kernel",

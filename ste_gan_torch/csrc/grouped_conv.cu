@@ -2,10 +2,12 @@
 // and weight gradient (dW), CUDA C++ behind a plain C interface.
 //
 // Replaces the Pallas TPU kernels of ste_gan_tpu/ops/pallas_conv.py:
-//   * conv_fwd_kernel    <- _fwd_kernel (:147-155) via _run_fwd (:189-208).
-//                           For f32 operands it also computes dX the way
-//                           _conv_core_bwd (:282-304) does: the forward at
-//                           stride 1 on stride-dilated dy with tap-flipped,
+//   * conv_fwd_bf16_kernel <- _fwd_kernel (:147-155) via _run_fwd (:189-208),
+//                           bf16: an implicit GEMM per group.
+//   * conv_fwd_kernel    <- the same, f32, on the CUDA cores. It also
+//                           computes the f32 dX the way _conv_core_bwd
+//                           (:282-304) does: the forward at stride 1 on
+//                           stride-dilated dy with tap-flipped,
 //                           in/out-transposed weights.
 //   * conv_dx_kernel     <- the dX pass of _conv_core_bwd (:282-304), bf16.
 //   * conv_dw_partial_kernel + conv_dw_reduce_kernel
@@ -36,11 +38,8 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 256;  // 8 warps in every kernel here
 constexpr int kWarps = kThreads / 32;
-constexpr int kTM = 4;  // time rows per thread (forward)
-constexpr int kTN = 4;  // output channels per thread (forward)
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+constexpr int kTM = 4;  // time rows per thread (f32 forward)
+constexpr int kTN = 4;  // output channels per thread (f32 forward)
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
@@ -113,17 +112,17 @@ __device__ __forceinline__ void store8(bf16* dst, const unsigned short* src, int
 }
 
 // ---------------------------------------------------------------------------
-// Forward (f32 and bf16), CUDA cores. Block = (time tile of BM outputs,
-// group x channel tile of BN, batch row). The input window of the tile
+// Forward in f32, CUDA cores. Block = (time tile of BM outputs, group x
+// channel tile of BN, batch row). The input window of the tile
 // ([cg][win_len] floats) is staged once; weights are staged kt taps at a
 // time as [kt][cg][BN]; each thread keeps a 4x4 (time, channel) tile.
 // ---------------------------------------------------------------------------
 
-template <typename T, int BN>
+template <int BN>
 __global__ void __launch_bounds__(kThreads)
-conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
-                int Tin, int Cin, int K, int Cout, int stride, int pad_l, int G,
-                int Tout, int KT, int win_len, int win_stride) {
+conv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                float* __restrict__ y, int Tin, int Cin, int K, int Cout, int stride,
+                int pad_l, int G, int Tout, int KT, int win_len, int win_stride) {
   constexpr int NX = BN / kTN;
   constexpr int NY = kThreads / NX;
   constexpr int BM = NY * kTM;
@@ -137,12 +136,12 @@ conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict_
   float* win = smem;                       // [cg][win_stride]
   float* ws = smem + cg * win_stride;      // [KT][cg][BN]
 
-  const T* xb = x + ((size_t)b * Cin + (size_t)g * cg) * Tin;
+  const float* xb = x + ((size_t)b * Cin + (size_t)g * cg) * Tin;
   const int base = t0 * stride - pad_l;
   for (int i = threadIdx.x; i < cg * win_len; i += kThreads) {
     const int c = i / win_len, r = i - c * win_len;
     const int t = base + r;
-    win[c * win_stride + r] = (t >= 0 && t < Tin) ? to_f(xb[(size_t)c * Tin + t]) : 0.f;
+    win[c * win_stride + r] = (t >= 0 && t < Tin) ? xb[(size_t)c * Tin + t] : 0.f;
   }
 
   const int tx = threadIdx.x % NX, ty = threadIdx.x / NX;
@@ -155,11 +154,11 @@ conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict_
   for (int k0 = 0; k0 < K; k0 += KT) {
     const int kt = min(KT, K - k0);
     __syncthreads();  // window staged / previous weight chunk consumed
-    const T* wg = w + ((size_t)g * K + k0) * cg * og;
+    const float* wg = w + ((size_t)g * K + k0) * cg * og;
     for (int i = threadIdx.x; i < kt * cg * BN; i += kThreads) {
       const int row = i / BN, n = i - row * BN;  // row = kk * cg + c
       const int o = n0 + n;
-      ws[row * BN + n] = (o < og) ? to_f(wg[(size_t)row * og + o]) : 0.f;
+      ws[row * BN + n] = (o < og) ? wg[(size_t)row * og + o] : 0.f;
     }
     __syncthreads();
     for (int kk = 0; kk < kt; ++kk) {
@@ -187,12 +186,181 @@ conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict_
   for (int j = 0; j < kTN; ++j) {
     const int o = n0 + tx * kTN + j;
     if (o >= og) continue;
-    T* yr = y + ((size_t)b * Cout + (size_t)g * og + o) * Tout;
+    float* yr = y + ((size_t)b * Cout + (size_t)g * og + o) * Tout;
 #pragma unroll
     for (int i = 0; i < kTM; ++i) {
       const int t = t0 + ty * kTM + i;
-      if (t < Tout) yr[t] = from_f<T>(acc[i][j]);
+      if (t < Tout) yr[t] = acc[i][j];
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Forward in bf16: an implicit GEMM per group on the tensor cores.
+//
+// y[b, g*og + o, u] = sum_{c, j} x[b, g*cg + c, u*s + j - pad_l] * w[g*og + o, c, j]:
+// per group a GEMM of M = output time rows, N = og, reduction over
+// (tap, input channel). Out-of-range x reads as zero.
+//
+// What bounds it: arithmetic (104 GFLOP per paired pass of the main path;
+// each staged x element feeds ~og*K/s MACs), so the design feeds the tensor
+// cores from shared memory, as dX does:
+//   * Block = (time tile of BM outputs; group x tile of OB output channels;
+//     batch row). Its x window, t = u0*s - pad_l + p for p < s*V, is staged
+//     once per chunk of CC input channels, channel-last and split by phase
+//     ([p mod s][p div s][c], rows padded by 8), transposing on the way in.
+//     Tap j of output row u0 + i is then row i + j div s of plane j mod s:
+//     consecutive outputs are consecutive 16-byte-aligned rows, and the 8
+//     rows of an ldmatrix fall in distinct banks.
+//   * Weights are permuted once per call by the wrapper, zero-padded, to
+//     [G, n_otiles, K, OB, cg_pad] (c contiguous) and streamed through a
+//     two-stage cp.async ring, mt taps per stage, so each weight element is
+//     staged once per block.
+//   * Warps tile BM x OB with warp tiles of 32x32 (64x16 at OB 16): per tap
+//     and 16-deep step of channels, a warp loads MTM A fragments and NT/2 B
+//     fragments with ldmatrix.x4 and issues MTM*NT mma.sync. A warp whose
+//     rows all lie past Tout skips the products.
+//   * The f32 accumulators leave through shared memory as an [o][u] tile, so
+//     that the stores to y are contiguous in time.
+// Channels past cg and og are zeros in shared memory; the ragged last time
+// tile and output channels past og are masked at the store.
+// ---------------------------------------------------------------------------
+
+struct FwdParams {  // field order = _FWD_FIELDS in ops/grouped_conv.py
+  int B, Cin, Cout, Tin, Tout, K, stride, pad_l, G;
+  int cg, og, n_otiles, cg_pad, n_cchunks;
+  int bm, V, mt, n_mchunks, so_stride;
+};
+
+// Warp tiling of a forward block with OB output channels; BM is _FWD_BM in
+// ops/grouped_conv.py.
+template <int OB>
+struct FwdTile {
+  static constexpr int NT = OB == 16 ? 2 : 4;   // n8 tiles per warp
+  static constexpr int MTM = OB == 16 ? 4 : 2;  // m16 tiles per warp
+  static constexpr int WN = NT * 8, WM = MTM * 16;
+  static constexpr int WARPS_N = OB / WN;
+  static constexpr int BM = (kWarps / WARPS_N) * WM;
+};
+
+template <int OB, int CC>
+__global__ void __launch_bounds__(kThreads, 2)
+conv_fwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
+                     bf16* __restrict__ y, const FwdParams p) {
+  using Tile = FwdTile<OB>;
+  constexpr int MTM = Tile::MTM, NT = Tile::NT, WM = Tile::WM, WN = Tile::WN;
+  constexpr int BM = Tile::BM, CCP = CC + 8, PIECES = CC / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* win = reinterpret_cast<bf16*>(smem_raw);      // [s][V][CCP]
+  bf16* ring = win + p.stride * p.V * CCP;             // [2][mt][OB][CCP]
+  float* sout = reinterpret_cast<float*>(smem_raw);   // [OB][so_stride], at the end
+  const int s = p.stride;
+  const int stage = p.mt * OB * CCP;
+  const int g = blockIdx.y / p.n_otiles, ot = blockIdx.y - g * p.n_otiles;
+  const int b = blockIdx.z, u0 = blockIdx.x * BM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp / Tile::WARPS_N, wn = warp - wm * Tile::WARPS_N;
+  const bool active = u0 + wm * WM < p.Tout;
+  const int t_base = u0 * s - p.pad_l;
+  const unsigned short* xb = reinterpret_cast<const unsigned short*>(x) +
+                             ((size_t)b * p.Cin + (size_t)g * p.cg) * p.Tin;
+  const bf16* wg = wp + (size_t)blockIdx.y * p.K * OB * p.cg_pad;
+  const int n_chunks = p.n_cchunks * p.n_mchunks;
+
+  // Weight chunk ch (c-chunk ch / n_mchunks, taps j0..j0+mt) into ring slot
+  // ch & 1; taps past K are never read.
+  auto stage_weights = [&](int ch) {
+    const int cc0 = (ch / p.n_mchunks) * CC, j0 = (ch % p.n_mchunks) * p.mt;
+    bf16* dst = ring + (ch & 1) * stage;
+    for (int i = threadIdx.x; i < p.mt * OB * PIECES; i += kThreads) {
+      const int row = i / PIECES, piece = i - row * PIECES;  // row = tap * OB + o
+      if (j0 + row / OB < p.K)
+        cp_async16(dst + row * CCP + piece * 8,
+                   wg + ((size_t)j0 * OB + row) * p.cg_pad + cc0 + piece * 8);
+    }
+  };
+  // x at t_base + pv of input channels cc0..cc0+CC, channel-last, into row
+  // pv div s of plane pv mod s; zeros outside [0, Tin) and past cg.
+  auto stage_window = [&](int cc0) {
+    for (int pv = threadIdx.x; pv < s * p.V; pv += kThreads) {
+      const int t = t_base + pv;
+      const bool in = t >= 0 && t < p.Tin;
+      bf16* dst = win + ((pv % s) * p.V + pv / s) * CCP;
+#pragma unroll
+      for (int c8 = 0; c8 < PIECES; ++c8)
+        store8(dst + c8 * 8, xb + (size_t)(cc0 + c8 * 8) * p.Tin + t, p.Tin,
+               in ? p.cg - (cc0 + c8 * 8) : 0);
+    }
+  };
+
+  float acc[MTM][NT][4];
+#pragma unroll
+  for (int i = 0; i < MTM; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  stage_weights(0);
+  cp_async_commit();
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int mc = ch % p.n_mchunks;
+    // The previous chunk's closing barrier has freed the window.
+    if (mc == 0) stage_window((ch / p.n_mchunks) * CC);
+    if (ch + 1 < n_chunks) stage_weights(ch + 1);
+    cp_async_commit();
+    cp_async_wait1();  // chunk ch has landed
+    __syncthreads();
+    if (active) {
+      const bf16* ws = ring + (ch & 1) * stage;
+      const int j0 = mc * p.mt, n_taps = min(p.mt, p.K - j0);
+      for (int jj = 0; jj < n_taps; ++jj) {
+        const int j = j0 + jj;
+        const bf16* arow =
+            win + ((j % s) * p.V + wm * WM + j / s + (lane & 15)) * CCP + (lane >> 4) * 8;
+        const bf16* brow =
+            ws + (jj * OB + wn * WN + (lane >> 4) * 8 + (lane & 7)) * CCP +
+            ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int ks = 0; ks < CC / 16; ++ks) {
+          uint32_t a[MTM][4], bb[NT][2];
+#pragma unroll
+          for (int i = 0; i < MTM; ++i)
+            ldsm_x4(arow + i * 16 * CCP + ks * 16, a[i][0], a[i][1], a[i][2], a[i][3]);
+#pragma unroll
+          for (int jn = 0; jn < NT / 2; ++jn)
+            ldsm_x4(brow + jn * 16 * CCP + ks * 16, bb[2 * jn][0], bb[2 * jn][1],
+                    bb[2 * jn + 1][0], bb[2 * jn + 1][1]);
+#pragma unroll
+          for (int i = 0; i < MTM; ++i)
+#pragma unroll
+            for (int jn = 0; jn < NT; ++jn) mma_bf16(acc[i][jn], a[i], bb[jn][0], bb[jn][1]);
+        }
+      }
+    }
+    __syncthreads();  // ring slot ch & 1 (and, at a c-chunk's end, the window) is free
+  }
+
+  // The output tile reuses the window and ring: every copy into them has
+  // landed and every read has passed the last barrier.
+  if (active) {
+#pragma unroll
+    for (int i = 0; i < MTM; ++i)
+#pragma unroll
+      for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int u = wm * WM + i * 16 + (lane >> 2) + (e >> 1) * 8;
+          const int o = wn * WN + jn * 8 + 2 * (lane & 3) + (e & 1);
+          sout[o * p.so_stride + u] = acc[i][jn][e];
+        }
+  }
+  __syncthreads();
+  const int o_lim = min(OB, p.og - ot * OB), u_lim = min(BM, p.Tout - u0);
+  bf16* yb = y + ((size_t)b * p.Cout + (size_t)g * p.og + ot * OB) * p.Tout + u0;
+  for (int i = threadIdx.x; i < o_lim * BM; i += kThreads) {
+    const int o = i / BM, u = i - o * BM;
+    if (u < u_lim) yb[(size_t)o * p.Tout + u] = __float2bfloat16(sout[o * p.so_stride + u]);
   }
 }
 
@@ -644,33 +812,35 @@ int launch_reduce(const float* part, void* dw, int n_chunks, int Cout, int K, in
 // Launchers
 // ---------------------------------------------------------------------------
 
-template <typename T, int BN>
+template <int BN>
 int launch_fwd(const void* x, const void* w, void* y, int B, int Tin, int Cin, int K,
                int Cout, int stride, int pad_l, int G, int Tout, int KT, int win_len,
                int win_stride, int smem_bytes, cudaStream_t stream) {
   constexpr int BM = (kThreads / (BN / kTN)) * kTM;
-  auto kern = conv_fwd_kernel<T, BN>;
+  auto kern = conv_fwd_kernel<BN>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const int og = Cout / G;
   dim3 grid((Tout + BM - 1) / BM, G * ((og + BN - 1) / BN), B);
   kern<<<grid, kThreads, smem_bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), Tin,
-      Cin, K, Cout, stride, pad_l, G, Tout, KT, win_len, win_stride);
+      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(y),
+      Tin, Cin, K, Cout, stride, pad_l, G, Tout, KT, win_len, win_stride);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_fwd(int bn, const void* x, const void* w, void* y, int B, int Tin, int Cin,
-                 int K, int Cout, int stride, int pad_l, int G, int Tout, int KT,
-                 int win_len, int win_stride, int smem_bytes, cudaStream_t s) {
-  switch (bn) {
-    case 16: return launch_fwd<T, 16>(x, w, y, B, Tin, Cin, K, Cout, stride, pad_l, G, Tout, KT, win_len, win_stride, smem_bytes, s);
-    case 32: return launch_fwd<T, 32>(x, w, y, B, Tin, Cin, K, Cout, stride, pad_l, G, Tout, KT, win_len, win_stride, smem_bytes, s);
-    case 64: return launch_fwd<T, 64>(x, w, y, B, Tin, Cin, K, Cout, stride, pad_l, G, Tout, KT, win_len, win_stride, smem_bytes, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+template <int OB, int CC>
+int launch_fwd_bf16(const void* x, const void* wp, void* y, const FwdParams& p, dim3 grid,
+                    int smem_bytes, cudaStream_t stream) {
+  if (p.bm != FwdTile<OB>::BM) return (int)cudaErrorInvalidValue;
+  auto kern = conv_fwd_bf16_kernel<OB, CC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, kThreads, smem_bytes, stream>>>(static_cast<const bf16*>(x),
+                                               static_cast<const bf16*>(wp),
+                                               static_cast<bf16*>(y), p);
+  return (int)cudaGetLastError();
 }
 
 template <int MTM, int NT, int OC>
@@ -702,18 +872,39 @@ int launch_dw(const void* x, const void* dy, float* part, const DwParams& p, dim
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after launch.
-int grouped_conv1d_fwd(const void* x, const void* w, void* y, int dtype, int bn,
-                       int B, int Tin, int Cin, int K, int Cout, int stride,
-                       int pad_l, int G, int Tout, int KT, int win_len,
-                       int win_stride, int smem_bytes, void* stream) {
+// f32 forward; w is [G, K, cg, og]. Every entry point returns
+// cudaGetLastError() after its launches.
+int grouped_conv1d_fwd_f32(const void* x, const void* w, void* y, int bn, int B, int Tin,
+                           int Cin, int K, int Cout, int stride, int pad_l, int G,
+                           int Tout, int KT, int win_len, int win_stride, int smem_bytes,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_fwd<float>(bn, x, w, y, B, Tin, Cin, K, Cout, stride, pad_l, G,
-                               Tout, KT, win_len, win_stride, smem_bytes, s);
-  if (dtype == 1)
-    return dispatch_fwd<bf16>(bn, x, w, y, B, Tin, Cin, K, Cout, stride, pad_l, G,
-                              Tout, KT, win_len, win_stride, smem_bytes, s);
+  switch (bn) {
+    case 16: return launch_fwd<16>(x, w, y, B, Tin, Cin, K, Cout, stride, pad_l, G, Tout, KT, win_len, win_stride, smem_bytes, s);
+    case 32: return launch_fwd<32>(x, w, y, B, Tin, Cin, K, Cout, stride, pad_l, G, Tout, KT, win_len, win_stride, smem_bytes, s);
+    case 64: return launch_fwd<64>(x, w, y, B, Tin, Cin, K, Cout, stride, pad_l, G, Tout, KT, win_len, win_stride, smem_bytes, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// bf16 forward. params: the FwdParams fields in order; ob = output channels
+// per block (16, 32 or 64), cc = input channels per chunk (16 or 32); wp is
+// [G, n_otiles, K, ob, cg_pad].
+int grouped_conv1d_fwd_bf16(const void* x, const void* wp, void* y, const int* params,
+                            int ob, int cc, int grid_x, int grid_y, int grid_z,
+                            int smem_bytes, void* stream) {
+  const FwdParams& p = *reinterpret_cast<const FwdParams*>(params);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(grid_x, grid_y, grid_z);
+  if (cc == 16) {
+    if (ob == 16) return launch_fwd_bf16<16, 16>(x, wp, y, p, grid, smem_bytes, s);
+    if (ob == 32) return launch_fwd_bf16<32, 16>(x, wp, y, p, grid, smem_bytes, s);
+    if (ob == 64) return launch_fwd_bf16<64, 16>(x, wp, y, p, grid, smem_bytes, s);
+  } else if (cc == 32) {
+    if (ob == 16) return launch_fwd_bf16<16, 32>(x, wp, y, p, grid, smem_bytes, s);
+    if (ob == 32) return launch_fwd_bf16<32, 32>(x, wp, y, p, grid, smem_bytes, s);
+    if (ob == 64) return launch_fwd_bf16<64, 32>(x, wp, y, p, grid, smem_bytes, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

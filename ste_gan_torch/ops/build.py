@@ -31,7 +31,8 @@ _INTS = ctypes.POINTER(ctypes.c_int)  # a kernel's parameter struct of ints
 #: C signature (argument types) of every exported function, by library.
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "grouped_conv": {
-        "grouped_conv1d_fwd": [_P, _P, _P] + [_I] * 15 + [_P],
+        "grouped_conv1d_fwd_f32": [_P, _P, _P] + [_I] * 14 + [_P],
+        "grouped_conv1d_fwd_bf16": [_P, _P, _P, _INTS] + [_I] * 6 + [_P],
         "grouped_conv1d_dx_bf16": [_P, _P, _P, _INTS] + [_I] * 6 + [_P],
         "grouped_conv1d_dw_bf16": [_P, _P, _P, _P, _INTS] + [_I] * 6 + [_P],
         "grouped_conv1d_dw_f32": [_P, _P, _P, _P] + [_I] * 14 + [_P],

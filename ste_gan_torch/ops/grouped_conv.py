@@ -18,14 +18,17 @@ The data gradient is a polyphase transposed conv: input position
 ``dy[q + d_r - m]`` (:func:`phases`), so no stride-dilated ``dy`` is built
 and no zero is multiplied. Routes by operand type:
 
-* bf16 (the main path): ``conv_dx_kernel`` (polyphase dX) and
-  ``conv_dw_partial_kernel`` + ``conv_dw_reduce_kernel`` (implicit-GEMM dW),
-  both on the tensor cores; their launch plans are :func:`_plan_dx` and
-  :func:`_plan_dw`, pure Python.
-* f32 (exact, no TF32): the CUDA-core kernels of the first port. dX runs the
-  forward kernel on stride-dilated ``dy`` with flipped, transposed weights
-  (:func:`dilate_flip`, which only this route uses), dW runs
-  ``conv_dw_partial_f32_kernel`` + ``conv_dw_reduce_kernel``.
+* bf16 (the main path), all on the tensor cores: ``conv_fwd_bf16_kernel``
+  (the forward as an implicit GEMM per group, over a phase-split input
+  window; it replaces ``pallas_conv.py:147`` ``_fwd_kernel``),
+  ``conv_dx_kernel`` (polyphase dX) and ``conv_dw_partial_kernel`` +
+  ``conv_dw_reduce_kernel`` (implicit-GEMM dW). Their launch plans are
+  :func:`_plan_fwd`, :func:`_plan_dx` and :func:`_plan_dw`, pure Python.
+* f32 (exact, no TF32): the CUDA-core kernels of the first port.
+  ``conv_fwd_kernel`` is the forward; dX runs it on stride-dilated ``dy``
+  with flipped, transposed weights (:func:`dilate_flip`, which only this
+  route uses); dW runs ``conv_dw_partial_f32_kernel`` +
+  ``conv_dw_reduce_kernel``.
 
 Each wrapper (:func:`conv_fwd`, :func:`conv_dx`, :func:`conv_dw`) runs its
 plain version only for tensors on the CPU; for CUDA tensors it launches the
@@ -46,9 +49,10 @@ from ste_gan_torch.ops import build
 _THREADS = 256
 _WARPS = _THREADS // 32
 _SMEM_LIMIT = 227 * 1024
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: Shared memory a dX block aims at, so that two blocks share an SM.
-_DX_SMEM_TARGET = 100 * 1024
+_DTYPES = (torch.float32, torch.bfloat16)
+#: Shared memory a forward or dX block aims at, so that two blocks share an
+#: SM.
+_SMEM_TARGET = 100 * 1024
 #: dW: rows (time steps of one batch row) per staged tile, as ``kBT``.
 _DW_ROWS = 128
 #: dW: most blocks to launch, two full waves of an H100's 132 SMs at the
@@ -172,6 +176,9 @@ def conv_dw_plain(x, dy, k: int, stride: int, pad_l: int, pad_r: int,
 # struct, in its order.
 # ---------------------------------------------------------------------------
 
+_FWD_FIELDS = ("B", "Cin", "Cout", "Tin", "Tout", "K", "stride", "pad_l", "G",
+               "cg", "og", "n_otiles", "cg_pad", "n_cchunks",
+               "bm", "V", "mt", "n_mchunks", "so_stride")
 _DX_FIELDS = ("B", "Cin", "Cout", "Tin", "Tout", "K", "stride", "pad_l", "G",
               "cg", "og", "n_ctiles", "og_pad", "n_ochunks",
               "bq", "upp", "rounds", "nmax", "dmin", "win_rows",
@@ -183,6 +190,92 @@ _DW_FIELDS = ("B", "Cin", "Cout", "Tin", "Tout", "K", "stride", "pad_l", "G",
 
 def _struct(plan, fields) -> ctypes.Array:
     return (ctypes.c_int * len(fields))(*(getattr(plan, f) for f in fields))
+
+
+#: Forward: time rows per block by output channels per block, as
+#: ``FwdTile<OB>::BM`` (the 8 warps tile BM x OB with warp tiles of 32x32,
+#: 64x16 at OB 16).
+_FWD_BM = {16: 512, 32: 256, 64: 128}
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    B: int
+    Cin: int
+    Cout: int
+    Tin: int
+    Tout: int
+    K: int
+    stride: int
+    pad_l: int
+    G: int
+    cg: int
+    og: int
+    n_otiles: int    # output-channel tiles of ob per group
+    cg_pad: int      # cg rounded up to whole c-chunks
+    n_cchunks: int   # chunks of cc input channels (with the taps, the reduction)
+    bm: int          # output time rows per block
+    V: int           # x window rows per phase
+    mt: int          # taps per weight stage
+    n_mchunks: int   # weight stages per c-chunk
+    so_stride: int   # floats per channel row of the output tile
+    ob: int          # output channels per block (16, 32 or 64)
+    cc: int          # input channels per chunk (16 or 32)
+    n_ttiles: int
+    smem: int
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        return (self.n_ttiles, self.G * self.n_otiles, self.B)
+
+    @functools.cached_property
+    def args(self) -> ctypes.Array:
+        return _struct(self, _FWD_FIELDS)
+
+    def block(self, bx: int, by: int) -> Tuple[int, range, range]:
+        """(group, output channels, output time steps) of a block, as the
+        kernel decodes blockIdx.x / .y."""
+        g, ot = divmod(by, self.n_otiles)
+        return (g, range(ot * self.ob, min(self.og, (ot + 1) * self.ob)),
+                range(bx * self.bm, min(self.Tout, (bx + 1) * self.bm)))
+
+    def tap_chunks(self) -> Iterator[Tuple[int, range]]:
+        """(c-chunk start, taps) of each weight stage, in order."""
+        for ch in range(self.n_cchunks * self.n_mchunks):
+            cc_i, mc = divmod(ch, self.n_mchunks)
+            j0 = mc * self.mt
+            yield cc_i * self.cc, range(j0, min(j0 + self.mt, self.K))
+
+    def tap_rows(self, j: int) -> Tuple[int, int]:
+        """(plane, window row) that tap ``j`` reads for a block's first
+        output; output ``i`` of the block reads ``i`` rows further."""
+        return j % self.stride, j // self.stride
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_fwd(b: int, c_in: int, c_out: int, k: int, stride: int, pad_l: int,
+              t_in: int, t_out: int, groups: int) -> FwdPlan:
+    """Tiles, grid and shared memory of ``conv_fwd_bf16_kernel``."""
+    cg, og = c_in // groups, c_out // groups
+    ob = 16 if og <= 16 else (32 if og <= 32 else 64)
+    cc = 16 if cg <= 16 else 32
+    bm = _FWD_BM[ob]
+    n_cchunks = _cdiv(cg, cc)
+    v = bm + (k - 1) // stride
+    ccp = cc + 8
+    win_bytes = 2 * stride * v * ccp
+    tap_bytes = 2 * ob * ccp
+    mt = max(1, min(k, (_SMEM_TARGET - win_bytes) // (2 * tap_bytes)))
+    n_mchunks = _cdiv(k, mt)
+    mt = _cdiv(k, n_mchunks)
+    so_stride = bm + 4
+    smem = max(win_bytes + 2 * mt * tap_bytes, 4 * ob * so_stride)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"grouped conv forward tile needs {smem} bytes of "
+                         f"shared memory (K {k}, stride {stride})")
+    return FwdPlan(b, c_in, c_out, t_in, t_out, k, stride, pad_l, groups, cg,
+                   og, _cdiv(og, ob), n_cchunks * cc, n_cchunks, bm, v, mt,
+                   n_mchunks, so_stride, ob, cc, _cdiv(t_out, bm), smem)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,7 +354,7 @@ def _plan_dx(b: int, c_in: int, c_out: int, k: int, stride: int, pad_l: int,
     ocp = oc + 8
     win_bytes = 2 * win_rows * ocp
     tap_bytes = 2 * stride * nb * ocp  # one tap of every phase
-    mt = max(1, min(nmax, (_DX_SMEM_TARGET - win_bytes) // (2 * tap_bytes)))
+    mt = max(1, min(nmax, (_SMEM_TARGET - win_bytes) // (2 * tap_bytes)))
     n_mchunks = _cdiv(nmax, mt)
     mt = _cdiv(nmax, n_mchunks)
     in_bytes = win_bytes + 2 * mt * tap_bytes
@@ -371,7 +464,34 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _launch_fwd(x, w, stride: int, pad_l: int, t_out: int, groups: int):
+def _fwd_weights(w, plan: FwdPlan):
+    """``[Cout, cg, K]`` -> ``[G, n_otiles, K, ob, cg_pad]``, zero-padded
+    (one copy where no padding is needed, as on the main path)."""
+    g, og, cg, k = plan.G, plan.og, plan.cg, plan.K
+    og_pad = plan.n_otiles * plan.ob
+    wp = w.view(g, og, cg, k)
+    if (og_pad, plan.cg_pad) != (og, cg):
+        wp = F.pad(wp, (0, 0, 0, plan.cg_pad - cg, 0, og_pad - og))
+    return (wp.view(g, plan.n_otiles, plan.ob, plan.cg_pad, k)
+            .permute(0, 1, 4, 2, 3).contiguous())
+
+
+def _launch_fwd_bf16(x, w, stride: int, pad_l: int, t_out: int, groups: int):
+    b, c_in, t_in = x.shape
+    c_out, _, k = w.shape
+    plan = _plan_fwd(b, c_in, c_out, k, stride, pad_l, t_in, t_out, groups)
+    x = x.contiguous()
+    wp = _fwd_weights(w, plan)
+    y = torch.empty(b, c_out, t_out, device=x.device, dtype=x.dtype)
+    lib = build.load("grouped_conv")
+    err = lib.grouped_conv1d_fwd_bf16(
+        x.data_ptr(), wp.data_ptr(), y.data_ptr(), plan.args, plan.ob,
+        plan.cc, *plan.grid, plan.smem, _stream())
+    build.check(err, "grouped_conv1d_fwd_bf16")
+    return y
+
+
+def _launch_fwd_f32(x, w, stride: int, pad_l: int, t_out: int, groups: int):
     b, c_in, t_in = x.shape
     c_out, cg, k = w.shape
     og = c_out // groups
@@ -389,11 +509,11 @@ def _launch_fwd(x, w, stride: int, pad_l: int, t_out: int, groups: int):
     w = w.view(groups, og, cg, k).permute(0, 3, 2, 1).contiguous()
     y = torch.empty(b, c_out, t_out, device=x.device, dtype=x.dtype)
     lib = build.load("grouped_conv")
-    err = lib.grouped_conv1d_fwd(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], bn, b,
-        t_in, c_in, k, c_out, stride, pad_l, groups, t_out, kt, win_len,
-        win_stride, smem, _stream())
-    build.check(err, "grouped_conv1d_fwd")
+    err = lib.grouped_conv1d_fwd_f32(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), bn, b, t_in, c_in, k, c_out,
+        stride, pad_l, groups, t_out, kt, win_len, win_stride, smem,
+        _stream())
+    build.check(err, "grouped_conv1d_fwd_f32")
     return y
 
 
@@ -492,7 +612,8 @@ def conv_fwd(x, w, stride: int, pad_l: int, pad_r: int, groups: int):
     if x.device.type != "cuda":
         raise RuntimeError(f"grouped conv runs on cuda or cpu, not {x.device}")
     t_out = out_length(x.shape[-1], w.shape[-1], stride, pad_l, pad_r)
-    y = _launch_fwd(x, w, stride, pad_l, t_out, groups)
+    launch = _launch_fwd_bf16 if x.dtype == torch.bfloat16 else _launch_fwd_f32
+    y = launch(x, w, stride, pad_l, t_out, groups)
     conv_fwd.launches += 1
     return y
 
@@ -515,7 +636,7 @@ def conv_dx(dy, w, stride: int, pad_l: int, t_in: int, groups: int):
         dx = _launch_dx_bf16(dy, w, stride, pad_l, t_in, groups)
     else:
         dy_dil, w_t, pl, _ = dilate_flip(dy, w, stride, pad_l, t_in, groups)
-        dx = _launch_fwd(dy_dil, w_t, 1, pl, t_in, groups)
+        dx = _launch_fwd_f32(dy_dil, w_t, 1, pl, t_in, groups)
     conv_dx.launches += 1
     return dx
 

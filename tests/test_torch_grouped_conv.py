@@ -1,8 +1,8 @@
 """The port's grouped conv1d (autograd function over the Hopper kernels'
 plain versions on the CPU) against the JAX Pallas kernel in interpret mode
 and XLA's grouped conv: values, dX and dW, f32. Also the launch plans and
-the weight layout of the bf16 tensor-core dX and dW kernels, which run only
-on the card.
+the weight layouts of the bf16 tensor-core forward, dX and dW kernels, which
+run only on the card.
 
 Tolerances are the JAX file's own (tests/test_pallas_conv.py): rtol/atol
 1e-5 on values, rtol 1e-4 / atol 1e-5 on gradients.
@@ -280,4 +280,62 @@ def test_dx_weight_layout(case):
             for c in range(plan.cg):
                 want[:, c // plan.nb, r, m, c % plan.nb, :plan.og] = (
                     w[:, c, j0 + stride * m].view(groups, plan.og))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_forward_plan_covers_the_work_once(case):
+    """``_plan_fwd`` fits shared memory; its (time tile, group x channel
+    tile, batch row) blocks cover every output once; its (c-chunk, taps)
+    weight stages cover every (input channel, tap) of the reduction once;
+    and each tap's window rows lie inside the staged window and read
+    ``x[u*s + j - pad_l]``."""
+    b, t, cin, cout, k, stride, pad, groups = case
+    t_out = gc.out_length(t, k, stride, pad, pad)
+    cg, og = cin // groups, cout // groups
+
+    p = gc._plan_fwd(b, cin, cout, k, stride, pad, t, t_out, groups)
+    assert p.smem <= 227 * 1024
+    gx, gy, gz = p.grid
+    assert gz == b and gy == groups * p.n_otiles
+    # Blocks do the same for every batch row: each (output channel, time
+    # step) once.
+    seen = np.zeros((cout, t_out), np.int64)
+    for bx in range(gx):
+        for by in range(gy):
+            g, os_, us = p.block(bx, by)
+            if len(os_) and len(us):
+                seen[g * og + os_.start:g * og + os_.stop,
+                     us.start:us.stop] += 1
+    assert (seen == 1).all()
+    # Weight stages: each (input channel, tap) once, within the ring.
+    staged = np.zeros((cg, k), np.int64)
+    for c0, taps in p.tap_chunks():
+        assert len(taps) <= p.mt and c0 < p.cg_pad
+        staged[c0:min(cg, c0 + p.cc), taps.start:taps.stop] += 1
+        for j in taps:
+            plane, row = p.tap_rows(j)
+            # window position plane + s*(row + i) is x[(u0 + i)*s + j - pad_l]
+            assert plane + stride * row == j and 0 <= plane < stride
+            assert 0 <= row and row + p.bm <= p.V
+    assert (staged == 1).all()
+
+
+@pytest.mark.parametrize("case", [PLAN_CASES[3], CASES[2], CASES[5],
+                                  PLAN_CASES[-1]])
+def test_fwd_weight_layout(case):
+    """``_fwd_weights`` puts ``w[g*og + o, c, j]`` at
+    ``[g, o // ob, j, o % ob, c]`` and zeros everywhere else."""
+    b, t, cin, cout, k, stride, pad, groups = case
+    plan = gc._plan_fwd(b, cin, cout, k, stride, pad, t,
+                        gc.out_length(t, k, stride, pad, pad), groups)
+    w = torch.randn(cout, cin // groups, k, generator=torch.Generator()
+                    .manual_seed(0))
+    got = gc._fwd_weights(w, plan).view(
+        groups, plan.n_otiles, k, plan.ob, plan.cg_pad)
+    want = torch.zeros_like(got)
+    wg = w.view(groups, plan.og, plan.cg, k)
+    for o in range(plan.og):
+        want[:, o // plan.ob, :, o % plan.ob, :plan.cg] = (
+            wg[:, o].transpose(1, 2))
     assert torch.equal(got, want)
