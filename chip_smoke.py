@@ -24,7 +24,8 @@ Phases, each fatal on failure:
    type;
 3. a small-input reference: two f32 train steps of a narrow configuration
    through the CUDA kernels agree with the same steps on the CPU (the
-   kernels' plain versions);
+   kernels' plain versions); so do two steps of the same configuration
+   with ``grad_accum=2`` and the eval step on its EMA weights;
 4. the main path at full width (``ste_gan_torch.train.gan.main_path``):
    ``Config()`` (batch 32 x 2048 samples, the 768-channel generator, the
    small discriminator ensemble, the full encoder, all five loss families,
@@ -32,7 +33,22 @@ Phases, each fatal on failure:
    numpy-seeded synthetic batch; 3 warm-up and 10 timed steps; every loss finite. Each
    kernel's launch count is set to 0 just before and read just after, and
    must be above 0;
-5. the ``kernels`` JSON line, the card line, and the last line
+5. the trainer CLI (``ste_gan_torch.train.train_gan``) at the shipped
+   configuration (``configs/ste_gan_base_gantts.yaml``,
+   ``configs/data/synthetic.yaml``) on the port's synthetic corpus (96/24/16
+   utterances, made under ``build/``), with short intervals: step indices
+   0-9 over 4 epochs of 3 steps, validation and periodic saves every 3
+   steps, then a resume with ``--continue_run`` to 12. Launch counts are set
+   to 0 before and must be above 0 after; every logged loss finite; the
+   checkpoints, ``.done`` and ``best.meta.json`` present; the final learning
+   rate ``2e-4 * 0.999^3``; the resume restores ``checkpoint-00000009`` at
+   step 10. A third run resumes to 100 at the shipped interval_log 50 with
+   no validation or checkpoint write, so the window of steps 51-100 times
+   the trainer alone. Prints the trainer's ms/step at its steady steps and
+   in that window beside the bare step's, and its validation and
+   blocking-save times; then 10 more bare steps, so that the trainer is
+   bracketed by bare steps of the same process;
+6. the ``kernels`` JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, when no CUDA device is present or when
@@ -55,6 +71,9 @@ TOL = {"float32": 1e-4, "bfloat16": 1e-2}  # max |kernel - plain| / max |plain|
 GROUPED_LAYERS = ((128, 256, 37, 2, 4, 18), (256, 512, 37, 2, 16, 18))
 PAIRED_BATCH = 64
 CHUNK = 2048
+#: The trainer phase: step indices 0-9, a resume to 12, then a steady
+#: window to 100.
+TRAINER_STEPS, RESUME_STEPS, STEADY_STEPS = 9, 12, 100
 #: Edge geometries (B, T, Cin, Cout, K, stride, pad, groups): the CASES of
 #: tests/test_torch_grouped_conv.py, then K < stride (a phase without taps).
 EDGE_GEOMETRIES = ((2, 64, 16, 32, 15, 1, 7, 1), (2, 64, 32, 64, 9, 2, 4, 4),
@@ -300,17 +319,37 @@ def check_adamw(torch, fa, models):
     return rows, summary
 
 
-def check_small_reference(Config, tgan):
-    """Two f32 steps of a narrow configuration: CUDA kernels vs the CPU
-    plain versions, same seed and batch. Tolerance rtol 1e-3 on losses."""
+def narrow_config(Config, grad_accum: int = 1):
+    """The narrow f32 configuration of the small-input reference phases."""
     cfg = Config()
     cfg.train.chunk_size, cfg.train.batch_size = 512, 4
     cfg.train.mixed_precision = False
     cfg.train.generator_ema = 0.999
+    cfg.train.grad_accum = grad_accum
     cfg.model.params = {"channels": 32}
     cfg.emg_encoder.params = {"model_size": 32, "num_transformer_layers": 1,
                               "num_heads": 4, "dim_feedforward": 64,
                               "dropout": 0.0}
+    return cfg
+
+
+def worst_relative(results, what: str) -> float:
+    """Largest |cuda - cpu| / |cpu| over the metrics; fatal above 1e-3."""
+    worst = 0.0
+    for key, want in results["cpu"].items():
+        got = results["cuda"][key]
+        rel = abs(got - want) / max(abs(want), 1e-6)
+        worst = max(worst, rel)
+        if rel > 1e-3:
+            raise SystemExit(f"{what} disagrees with the CPU: {key} "
+                             f"{got} vs {want}")
+    return worst
+
+
+def check_small_reference(Config, tgan):
+    """Two f32 steps of a narrow configuration: CUDA kernels vs the CPU
+    plain versions, same seed and batch. Tolerance rtol 1e-3 on losses."""
+    cfg = narrow_config(Config)
     results = {}
     for device in ("cuda", "cpu"):
         models = tgan.build_models(cfg, seed=0, device=device)
@@ -320,17 +359,209 @@ def check_small_reference(Config, tgan):
             _, metrics = step(state, tgan.synthetic_batch(cfg, device,
                                                           seed=i))
         results[device] = {k: float(v) for k, v in metrics.items()}
-    worst = 0.0
-    for key, want in results["cpu"].items():
-        got = results["cuda"][key]
-        rel = abs(got - want) / max(abs(want), 1e-6)
-        worst = max(worst, rel)
-        if rel > 1e-3:
-            raise SystemExit(f"small-input step disagrees with the CPU: {key} "
-                             f"{got} vs {want}")
+    worst = worst_relative(results, "small-input step")
     print(f"[reference] narrow f32 step, cuda vs cpu: worst relative loss "
           f"difference {worst:.3e} (tol 1e-3)", flush=True)
     return {"worst_rel": worst, "cuda": results["cuda"], "cpu": results["cpu"]}
+
+
+def check_small_accum_and_eval(Config, tgan):
+    """The same narrow configuration with ``grad_accum=2``: two
+    accumulating steps, then the eval step on the EMA weights; CUDA kernels
+    vs the CPU plain versions. Tolerance rtol 1e-3."""
+    cfg = narrow_config(Config, grad_accum=2)
+    results = {}
+    for device in ("cuda", "cpu"):
+        models = tgan.build_models(cfg, seed=0, device=device)
+        state = tgan.init_state(cfg, models)
+        step = tgan.make_train_step(cfg, models)
+        for i in range(2):
+            _, metrics = step(state, tgan.synthetic_batch(cfg, device,
+                                                          seed=i))
+        with tgan.eval_generator_params(models, state):
+            val = tgan.make_eval_step(cfg, models)(
+                tgan.synthetic_batch(cfg, device, seed=7))
+        results[device] = {
+            **{f"accum {k}": float(v) for k, v in metrics.items()},
+            **{f"eval {k}": float(v) for k, v in val.items()}}
+    worst = {what: worst_relative(
+        {d: {k: v for k, v in r.items() if k.startswith(what)}
+         for d, r in results.items()}, f"narrow f32 {what} step")
+        for what in ("accum", "eval")}
+    print(f"[reference] narrow f32 step with grad_accum=2, cuda vs cpu: "
+          f"worst relative difference {worst['accum']:.3e}; eval step on the "
+          f"EMA weights: {worst['eval']:.3e} (tol 1e-3)", flush=True)
+    return {"worst_rel": worst, "cuda": results["cuda"], "cpu": results["cpu"]}
+
+
+def check_trainer(torch, counters, bare_ms: float, card: str):
+    """The trainer CLI at the shipped configuration: the port's synthetic
+    corpus at its CLI defaults, then ``configs/ste_gan_base_gantts.yaml``
+    and ``configs/data/synthetic.yaml`` with short intervals, 10 steps
+    (indices 0-9, 4 epochs of 3) and a resume to 12. Launch counts are
+    zeroed before the first run and read after it."""
+    import logging
+    import shutil
+
+    import yaml
+
+    from ste_gan_torch.config import create_ste_gan_model_name, load_config
+    from ste_gan_torch.data import synthetic
+    from ste_gan_torch.train import train_gan
+    from ste_gan_torch.train.gan import epoch_lr
+
+    work = ROOT / "build" / "chip_smoke_trainer"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    synthetic.main(["--root", str(work / "synthetic")])
+    corpus_s = time.perf_counter() - t0
+    with open(ROOT / "configs" / "data" / "synthetic.yaml") as fp:
+        data = yaml.safe_load(fp)
+    data["dataset_root"] = str(work / "synthetic")
+    (work / "data.yaml").write_text(yaml.safe_dump(data))
+    configs = {}
+    for name, train in (
+            ("short", dict(interval_log=1, interval_valid=3, interval_save=3,
+                           save_last_epoch_interval=1,
+                           interval_sample=10_000)),
+            # The shipped logging cadence, nothing else in the window.
+            ("steady", dict(interval_valid=10_000, interval_save=10_000,
+                            save_last_epoch_interval=10_000,
+                            interval_sample=10_000))):
+        with open(ROOT / "configs" / "ste_gan_base_gantts.yaml") as fp:
+            base = yaml.safe_load(fp)
+        base["model_base_dir"] = str(work / "exp")
+        base["train"].update(train)
+        configs[name] = work / f"config_{name}.yaml"
+        configs[name].write_text(yaml.safe_dump(base))
+
+    def argv(name, max_steps, *more):
+        return ["--config", str(configs[name]), "--data",
+                str(work / "data.yaml"), "--emg_enc_cfg",
+                str(ROOT / "configs" / "emg_encoder" / "conv_transformer.yaml"),
+                "--max_steps", str(max_steps), *more]
+
+    cfg = load_config(str(configs["short"]), str(work / "data.yaml"))
+    run = work / "exp" / create_ste_gan_model_name(cfg, add_timestamp=False)
+
+    messages = []
+
+    class Capture(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    capture = Capture()
+    logging.getLogger().addHandler(capture)
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        train_gan.main(train_gan.parse_args(argv("short", TRAINER_STEPS)))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        missing = [name for name, n in launches.items() if n <= 0]
+        if missing:
+            raise SystemExit(f"kernels never launched by the trainer: "
+                             f"{missing}")
+        for entry in (".done", "config.yaml", "checkpoint-00000003",
+                      "checkpoint-00000006", "checkpoint-00000009",
+                      "checkpoint-final", "checkpoint-last", "best"):
+            if not (run / entry).exists():
+                raise SystemExit(f"trainer run dir lacks {entry}")
+        best = json.loads((run / "best.meta.json").read_text())
+        if "su_error" not in best:
+            raise SystemExit(f"best.meta.json has no su_error: {best}")
+        final = torch.load(run / "checkpoint-final" / "state.pt",
+                           map_location="cpu", weights_only=True, mmap=True)
+        want_lr = float(torch.tensor(epoch_lr(cfg, 3), dtype=torch.float32))
+        got_lr = [float(final[o]["hyper"][0]) for o in ("opt_g", "opt_d")]
+        if final["step"] != TRAINER_STEPS + 1 or got_lr != [want_lr] * 2:
+            raise SystemExit(f"final checkpoint: step {final['step']}, "
+                             f"learning rates {got_lr} (want {want_lr})")
+        ckpt_mb = (run / "checkpoint-final" / "state.pt").stat().st_size / 2**20
+        del final
+
+        (run / ".done").unlink()
+        messages.clear()
+        t0 = time.perf_counter()
+        train_gan.main(train_gan.parse_args(
+            argv("short", RESUME_STEPS, "--continue_run")))
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        restored = [m for m in messages if m.startswith(
+            ("Resuming from checkpoint", "Restored train state"))]
+
+        # A steady window: resumed at step 13, logged at the shipped
+        # interval_log 50 with no validation and no checkpoint write before
+        # the final save, so the window of steps 51-100 is the trainer's own.
+        (run / ".done").unlink()
+        train_gan.main(train_gan.parse_args(
+            argv("steady", STEADY_STEPS, "--continue_run")))
+        torch.cuda.synchronize()
+    finally:
+        logging.getLogger().removeHandler(capture)
+    if (len(restored) != 2 or not restored[0].endswith("checkpoint-00000009")
+            or "at step 10 " not in restored[1]):
+        raise SystemExit(f"the resume did not restore checkpoint-00000009 at "
+                         f"step 10: {restored}")
+
+    logged = {}
+    for line in (run / "metrics.jsonl").read_text().splitlines():
+        rec = json.loads(line)
+        logged.setdefault(rec["tag"], {})[rec["step"]] = rec["value"]
+    losses = {tag: v for tag, v in logged.items()
+              if tag.startswith("train_loss/")}
+    steps = sorted(logged["train_loss/generator"])
+    if steps != list(range(RESUME_STEPS + 1)) + [50, STEADY_STEPS]:
+        raise SystemExit(f"logged steps {steps}")
+    bad = [(tag, s) for tag, v in losses.items() for s, x in v.items()
+           if x != x or abs(x) == float("inf")]
+    if bad:
+        raise SystemExit(f"non-finite logged losses: {bad}")
+    # Steady steps: no validation, save or epoch boundary in the window
+    # between the previous step's log and this one's, and not the first.
+    ms = logged["perf/ms_per_step"]
+    window_ms = ms[STEADY_STEPS]
+    steady = [s for s in sorted(ms)
+              if s % 3 and (s - 1) % 3 and 1 < s <= RESUME_STEPS]
+    steady_ms = [ms[s] for s in steady]
+    median_ms = sorted(steady_ms)[len(steady_ms) // 2]
+    ch_samples = (cfg.train.batch_size * cfg.train.chunk_size
+                  * cfg.data.num_emg_channels)
+    val_s = logged["perf/validation_s"]
+    report = {"corpus_s": corpus_s, "run_s": run_s, "resume_s": resume_s,
+              "launches": launches, "ms_per_step": ms, "steady_steps": steady,
+              "steady_ms_per_step": steady_ms,
+              "median_ms_per_step": median_ms,
+              "steady_window_ms_per_step": window_ms,
+              "steady_window_ch_samples_per_s": ch_samples / window_ms * 1e3,
+              "ch_samples_per_s": ch_samples / median_ms * 1e3,
+              "validation_s": val_s,
+              "final_save_s": logged["perf/final_save_s"],
+              "checkpoint_mb": ckpt_mb, "best_su_error": best["su_error"],
+              "learning_rate": want_lr}
+    print(f"[trainer] corpus {corpus_s:.1f} s; steps 0-{TRAINER_STEPS} in "
+          f"{run_s:.1f} s, resumed from checkpoint-00000009 (step 10) to "
+          f"{RESUME_STEPS} in {resume_s:.1f} s; launches {launches}; "
+          f"learning rate {want_lr:.9g}; best val SU {best['su_error']:.4f}",
+          flush=True)
+    print(f"[trainer] ms/step at steady steps {steady}: "
+          f"{', '.join(f'{x:.2f}' for x in steady_ms)} (median "
+          f"{median_ms:.2f} ms = {ch_samples / median_ms * 1e3:.1f} EMG "
+          f"channel-samples/s); bare [step] {bare_ms:.2f} ms/step ({card})",
+          flush=True)
+    print(f"[trainer] steady window, steps 51-{STEADY_STEPS} at the shipped "
+          f"interval_log 50 with no validation or checkpoint write: "
+          f"{window_ms:.2f} ms/step = {ch_samples / window_ms * 1e3:.1f} EMG "
+          f"channel-samples/s; bare [step] {bare_ms:.2f} ms/step ({card})",
+          flush=True)
+    print(f"[trainer] validation pass (24 utterances) s by step: "
+          f"{json.dumps(val_s)}; blocking final save of {ckpt_mb:.0f} MB, s "
+          f"by step: {json.dumps(logged['perf/final_save_s'])} ({card})",
+          flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return report
 
 
 def main() -> int:
@@ -372,6 +603,7 @@ def main() -> int:
     adamw_rows, adamw_summary = check_adamw(torch, fa, models)
     report["adamw"] = adamw_rows
     report["reference"] = check_small_reference(Config, tgan)
+    report["reference_accum_eval"] = check_small_accum_and_eval(Config, tgan)
 
     # ---- The main path at full width. ----
     counters = {"grouped_conv_fwd": gc.conv_fwd, "grouped_conv_dx": gc.conv_dx,
@@ -416,6 +648,20 @@ def main() -> int:
     if missing:
         raise SystemExit(f"kernels never launched on the main path: {missing}")
 
+    # ---- The trainer CLI at the shipped configuration. ----
+    report["trainer"] = check_trainer(torch, counters, 1e3 * sec_per_step,
+                                      card)
+    # The bare step again, so that the trainer's window is bracketed by
+    # bare steps of the same process.
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    after_ms = 1e3 * (time.perf_counter() - t0) / timed
+    report["step"]["ms_per_step_after_trainer"] = after_ms
+    print(f"[step] again after the trainer: {after_ms:.2f} ms/step ({card})",
+          flush=True)
+
     source = {"grouped_conv_fwd": "ste_gan_torch/csrc/grouped_conv.cu",
               "grouped_conv_dx": "ste_gan_torch/csrc/grouped_conv.cu",
               "grouped_conv_dw": "ste_gan_torch/csrc/grouped_conv.cu",
@@ -433,7 +679,9 @@ def main() -> int:
     summaries = dict(conv_summary, fused_adamw=adamw_summary)
     kernels = [{"name": name, "route": "cuda", "source": source[name],
                 "kernel": cuda_kernels[name], "replaces": replaces[name],
-                "launches": launches[name], **summaries[name]}
+                "launches": launches[name],
+                "trainer_launches": report["trainer"]["launches"][name],
+                **summaries[name]}
                for name in counters]
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

@@ -3,7 +3,10 @@
 Replaces the reference's three-file OmegaConf merge
 (reference: ste_gan/train_utils.py:204-235) with plain dataclasses + PyYAML:
 a base training config, a data config, and an EMG-encoder config merge into a
-single :class:`Config`.
+single :class:`Config`. CLI overrides keep the reference semantics
+(reference: ste_gan/train_utils.py:48-91): negative numeric / blank string
+means "keep the config value", and a loss weight below 1e-3 disables that
+loss term entirely.
 
 This is a copy of ``ste_gan_tpu/config.py`` with the same fields, so the same
 YAML files load into the PyTorch port; the port keeps its own copy because it
@@ -13,7 +16,9 @@ whatever ``grouped_conv_impl`` and ``fused_optimizer`` say.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Dict, Optional
@@ -320,12 +325,24 @@ def load_yaml(path) -> Dict[str, Any]:
         return yaml.safe_load(fp) or {}
 
 
-def load_config(config: Optional[str] = None, data: Optional[str] = None,
-                emg_enc_cfg: Optional[str] = None) -> Config:
-    """Three-file YAML merge: the base config supplies
-    ``model``/``train``/``model_base_dir``, the data config becomes ``data``,
-    and the encoder config becomes ``emg_encoder``. (The JAX package's CLI
-    overrides come with the trainer CLI.)"""
+def load_config(
+    config: Optional[str] = None,
+    data: Optional[str] = None,
+    emg_enc_cfg: Optional[str] = None,
+    args: Optional[argparse.Namespace] = None,
+    override_with_eval_args: bool = True,
+) -> Config:
+    """Three-file YAML merge + optional CLI overrides.
+
+    Mirrors reference load_config (ste_gan/train_utils.py:204-235): the base
+    config supplies ``model``/``train``/``model_base_dir``, the data config
+    becomes ``data``, and the encoder config becomes ``emg_encoder``.
+    """
+    if args is not None:
+        config = config or getattr(args, "config", None)
+        data = data or getattr(args, "data", None)
+        emg_enc_cfg = emg_enc_cfg or getattr(args, "emg_enc_cfg", None)
+
     merged: Dict[str, Any] = {}
     if config:
         merged.update(load_yaml(config))
@@ -333,4 +350,118 @@ def load_config(config: Optional[str] = None, data: Optional[str] = None,
         merged["data"] = load_yaml(data)
     if emg_enc_cfg:
         merged["emg_encoder"] = load_yaml(emg_enc_cfg)
-    return config_from_dict(merged)
+
+    cfg = config_from_dict(merged)
+    if args is not None and override_with_eval_args:
+        apply_cli_overrides(cfg, args)
+    return cfg
+
+
+def apply_cli_overrides(cfg: Config, args: argparse.Namespace) -> Config:
+    """Apply CLI overrides with reference semantics
+    (reference: ste_gan/train_utils.py:48-91): a negative number or a blank
+    string keeps the config value, and a loss weight below 1e-3 disables
+    that loss term."""
+    t = cfg.train
+
+    def _maybe(name, attr, pred):
+        val = getattr(args, name, None)
+        if val is not None and pred(val):
+            setattr(t, attr, val)
+
+    _maybe("weight_su", "loss_speech_unit_weight", lambda v: v >= 0.0)
+    _maybe("weight_phoneme", "loss_phoneme_weight", lambda v: v >= 0.0)
+    _maybe("weight_td", "loss_multi_td_weight", lambda v: v >= 0.0)
+    _maybe("weight_feat_match", "loss_feat_match_weight", lambda v: v >= 0.0)
+    _maybe("chunk_size", "chunk_size", lambda v: v > 0)
+    _maybe("batch_size", "batch_size", lambda v: v > 0)
+    _maybe("max_steps", "max_steps", lambda v: v > 0)
+    _maybe("model_parallel", "model_parallel", lambda v: v > 0)
+    _maybe("grad_accum", "grad_accum", lambda v: v > 0)
+    remat = getattr(args, "remat", None)
+    if remat is not None and remat >= 0:
+        t.remat = bool(remat)
+    fsdp = getattr(args, "fsdp", None)
+    if fsdp is not None and fsdp >= 0:
+        t.fsdp = bool(fsdp)
+
+    sft = getattr(args, "speech_feature_type", "") or ""
+    if sft.strip():
+        cfg.model.speech_feature_type = sft.strip()
+
+    # A weight below 1e-3 disables the corresponding loss term.
+    if t.loss_speech_unit_weight < 0.001:
+        t.loss_speech_unit_error = False
+    if t.loss_phoneme_weight < 0.001:
+        t.loss_phoneme_error = False
+    return cfg
+
+
+def add_eval_hyperparams_to_parser(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """CLI flags mirroring the reference's override surface
+    (reference: ste_gan/train_utils.py:140-190); the same flags as the JAX
+    package's trainer."""
+    parser.add_argument("--weight_su", type=float, default=-1.0,
+                        help="Speech-unit loss weight (<0 keeps config value).")
+    parser.add_argument("--weight_phoneme", type=float, default=-1.0,
+                        help="Phoneme loss weight (<0 keeps config value).")
+    parser.add_argument("--weight_td", type=float, default=-1.0,
+                        help="Multi-time-domain loss weight (<0 keeps config value).")
+    parser.add_argument("--weight_feat_match", type=float, default=-1.0,
+                        help="Feature-matching loss weight (<0 keeps config value).")
+    parser.add_argument("--speech_feature_type", type=str, default="",
+                        help="Generator input feature DataType (blank keeps config).")
+    parser.add_argument("--chunk_size", type=int, default=-1,
+                        help="EMG samples per training chunk (<0 keeps config value).")
+    parser.add_argument("--batch_size", type=int, default=-1,
+                        help="Global batch size (<0 keeps config value).")
+    parser.add_argument("--max_steps", type=int, default=-1,
+                        help="Maximum training steps (<0 keeps config value).")
+    parser.add_argument("--model_parallel", type=int, default=-1,
+                        help="Tensor-parallel size (<=0 keeps the config "
+                             "value); the port trains on one device and "
+                             "refuses a value above 1.")
+    parser.add_argument("--grad_accum", type=int, default=-1,
+                        help="Split each batch into K sequential "
+                             "microbatches with one optimizer update — "
+                             "trades compute for activation memory, math "
+                             "identical to the full batch (<=0 keeps the "
+                             "config value).")
+    parser.add_argument("--remat", type=int, default=-1,
+                        help="1 = recompute activations in the backward "
+                             "(torch.utils.checkpoint around the generator "
+                             "forward and both loss phases): identical "
+                             "math, less activation memory (<0 keeps the "
+                             "config value).")
+    parser.add_argument("--fsdp", type=int, default=-1,
+                        help="1 = fully sharded state (<0 keeps the config "
+                             "value); the port trains on one device and "
+                             "refuses 1.")
+    return parser
+
+
+def create_ste_gan_model_name(cfg: Config, add_timestamp: bool = True,
+                              debug: bool = False, note: str = "") -> str:
+    """Hyperparameter-encoding run-directory name
+    (reference: ste_gan/train_utils.py:107-137); the same name as the JAX
+    package gives for the same config."""
+    import time as _time
+
+    if note:
+        note += "_"
+    t = cfg.train
+    use_adv_str = "with_adv_loss" if t.loss_adversarial else "no_adv_loss"
+    debug_str = "DEBUG_" if debug else ""
+    timestamp_str = "" if (debug or not add_timestamp) else _time.strftime("%Y%m%d-%H%M%S") + "_"
+    small_dis = "small_dis" if cfg.model.discriminator_small else "full_dis"
+    return (
+        f"{note}{debug_str}{timestamp_str}{cfg.data.name}_{cfg.model.type}_"
+        f"{cfg.model.speech_feature_type}_{small_dis}_chunk_{t.chunk_size}_"
+        f"{use_adv_str}_fmw_{t.loss_feat_match_weight}_tdw_{t.loss_multi_td_weight}_"
+        f"suw_{t.loss_speech_unit_weight}_phw_{t.loss_phoneme_weight}_"
+        f"wv_{t.loss_waveform_weight}"
+    )
+
+
+def save_json(obj: Any, path: Path) -> None:
+    Path(path).write_text(json.dumps(obj, indent=2))

@@ -9,6 +9,10 @@ statistics ``running_mean``/``running_var``. The port's module paths follow
 the same layout, so :func:`load_generator`, :func:`load_discriminator` and
 :func:`load_encoder` load these dicts with ``strict=True``.
 
+:func:`train_state_from_jax` carries a whole JAX train state (parameters,
+spectral state, optax AdamW moments, EMA, step) into the port's models and
+state, in place.
+
 Spectral ``v``: the exported state dict recomputes ``v = normalize(Wᵀu)``,
 as the JAX exporter does. :func:`load_discriminator` instead carries the JAX
 state's own ``v``, permuted from JAX's ``(*k, in)`` flatten order to the
@@ -190,6 +194,51 @@ def load_discriminator(model: torch.nn.Module, params: Mapping,
 def load_encoder(model: torch.nn.Module, variables: Mapping) -> None:
     model.load_state_dict(to_torch(encoder_variables_to_state_dict(variables)),
                           strict=True)
+
+
+def _adam_inner(opt_state):
+    """(mu, nu, count, learning rate) of optax's
+    ``inject_hyperparams(adamw)`` state (moments in ``inner_state[0]``)."""
+    inner = opt_state.inner_state[0]
+    return (inner.mu, inner.nu, int(np.asarray(inner.count)),
+            float(np.asarray(opt_state.hyperparams["learning_rate"])))
+
+
+def _copy_by_name(tensors, names, sd: Mapping) -> None:
+    with torch.no_grad():
+        for t, name in zip(tensors, names):
+            t.copy_(torch.tensor(np.asarray(sd[name])).reshape(t.shape))
+
+
+def train_state_from_jax(jstate, models, state) -> None:
+    """Carry a JAX ``GANTrainState`` into the port's models and state, in
+    place: generator and discriminator parameters, the spectral-norm u/v,
+    both AdamW states (moments, count, learning rate), the EMA and the
+    step."""
+    sft = models.generator.speech_feature_type
+    load_generator(models.generator, jstate.gen_params, sft)
+    load_discriminator(models.discriminator, jstate.disc_params,
+                       jstate.disc_spectral)
+    gen_names = [n for n, _ in models.generator.named_parameters()]
+    disc_names = [n for n, _ in models.discriminator.named_parameters()]
+    for opt, jopt, names, to_sd in (
+            (state.opt_g, jstate.opt_g, gen_names,
+             lambda tree: generator_params_to_state_dict(tree, sft)),
+            (state.opt_d, jstate.opt_d, disc_names,
+             lambda tree: discriminator_params_to_state_dict(
+                 tree, jstate.disc_spectral))):
+        mu, nu, count, lr = _adam_inner(jopt)
+        _copy_by_name(opt.exp_avg, names, to_sd(mu))
+        _copy_by_name(opt.exp_avg_sq, names, to_sd(nu))
+        opt.count.fill_(count)
+        opt.hyper[0].fill_(lr)
+    if (jstate.gen_ema is None) != (state.gen_ema is None):
+        raise ValueError("the JAX state and the port's state disagree on "
+                         "train.generator_ema")
+    if state.gen_ema is not None:
+        _copy_by_name(state.gen_ema, gen_names,
+                      generator_params_to_state_dict(jstate.gen_ema, sft))
+    state.step = int(np.asarray(jstate.step))
 
 
 def spectral_to_jax(model: torch.nn.Module) -> Dict[str, Dict]:

@@ -6,8 +6,8 @@ Sets up the main path that ``chip_smoke.py`` times
 (:func:`ste_gan_torch.train.gan.main_path`), takes 3 warm-up steps, times
 ``--steps`` steps with the host clock around ``synchronize``, then traces the
 same number of steps with ``torch.profiler`` and prints the device time per
-step by kernel, the traced step's device busy share, and the card's name and
-power limit. Tracing slows the host, so the traced step's idle share is an
+step by kernel (the top 40, then every hand-written kernel of the port), the
+traced step's device busy share, and the card's name and power limit. Tracing slows the host, so the traced step's idle share is an
 upper bound on the untraced step's; the untraced estimate divides the traced
 device time by the untraced wall time of the other window.
 """
@@ -20,6 +20,12 @@ import torch
 
 from ste_gan_torch.device import card_line
 from ste_gan_torch.train import gan as tgan
+
+
+#: The CUDA kernels of ``ste_gan_torch/csrc``, listed whatever their rank.
+HAND_KERNELS = ("conv_fwd_bf16_kernel", "conv_fwd_kernel", "conv_dx_kernel",
+                "conv_dw_partial_kernel", "conv_dw_partial_f32_kernel",
+                "conv_dw_reduce_kernel", "adamw_multi_tensor_kernel")
 
 
 def _device_us(evt) -> float:
@@ -69,9 +75,14 @@ def main(argv=None) -> None:
              f"untraced step idle {100 - 100 * busy / wall_ms:.1f} % "
              f"(estimate from the two windows)",
              f"{'ms/step':>9}  {'share':>6}  {'calls/step':>10}  kernel"]
-    for name, count, ms in kernel_rows[:40]:
-        lines.append(f"{ms:9.3f}  {100 * ms / busy:5.1f}%  "
-                     f"{count / args.steps:10.1f}  {name[:110]}")
+    def row(name, count, ms):
+        return (f"{ms:9.3f}  {100 * ms / busy:5.1f}%  "
+                f"{count / args.steps:10.1f}  {name[:110]}")
+
+    lines += [row(*r) for r in kernel_rows[:40]]
+    lines.append("hand-written kernels of the port (ste_gan_torch/csrc):")
+    lines += [row(*r) for r in kernel_rows
+              if any(k in r[0] for k in HAND_KERNELS)]
     print("\n".join(lines))
 
 

@@ -1,1 +1,2 @@
-"""The fused adversarial train step of the port."""
+"""GAN training of the port: the fused train step (``gan``), checkpoints
+(``checkpoint``) and the trainer CLI (``train_gan``)."""
