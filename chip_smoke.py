@@ -48,7 +48,23 @@ Phases, each fatal on failure:
    in that window beside the bare step's, and its validation and
    blocking-save times; then 10 more bare steps, so that the trainer is
    bracketed by bare steps of the same process;
-6. the ``kernels`` JSON line, the card line, and the last line
+6. encoder pre-training (``ste_gan_torch.train.encoder``):
+   ``[dtw]`` the ``dtw_align_kernel`` against its plain version, alignments
+   identical at the mixed corpus's slot shapes, a 500 x 600 utterance, the
+   edges and tied costs, with kernel, plain and bound ms; ``[encoder]`` two narrow f32
+   encoder steps, voiced and mixed, on the card and on the CPU (TF32 off,
+   rtol 1e-3); ``[encoder-step]`` the bare train step at full width
+   (``configs/emg_encoder/conv_transformer.yaml``) on a folded batch of 80
+   windows, 3 warm-up and 10 timed steps with cuDNN TF32 on (PyTorch's
+   default, what the CLI gets) and off, every loss finite, and AdamW at the
+   encoder's parameter set; ``[encoder-trainer]`` the CLI at full width on
+   the port's synthetic corpus, voiced for 3 epochs and mixed
+   (``--silent_fraction 0.25``, ``--include_silent``) for 2, launch counts
+   zeroed before each run and above 0 after it (DTW in the mixed run), then
+   ``best_val_loss_model.pt`` loaded strictly by the GAN trainer's
+   ``load_frozen_encoder``, its weights equal to the file's and its outputs
+   within 1e-5 of the saved encoder's;
+7. the ``kernels`` JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, when no CUDA device is present or when
@@ -62,6 +78,8 @@ import re
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
@@ -263,6 +281,51 @@ def check_conv_edges(torch, gc):
     return {"rows": rows, "dw_bitwise_equal": same}
 
 
+def adamw_row(torch, fa, shapes, gen, lr, b1, b2, weight_decay):
+    """Kernel vs plain AdamW over leaves of ``shapes``: 3 updates of
+    identical copies of the same seeded parameters with the same gradients;
+    max |err| over the parameters and both moments (tol 1e-6, fatal), then
+    kernel, plain and library ms of one update."""
+    n = sum(int(torch.Size(s).numel()) for s in shapes)
+    base = [torch.randn(s, device="cuda", generator=gen) for s in shapes]
+    grads = [[torch.randn(s, device="cuda", generator=gen)
+              for s in shapes] for _ in range(3)]
+    pk = [p.clone() for p in base]
+    pp = [p.clone() for p in base]
+    hyper = dict(lr=lr, b1=b1, b2=b2, weight_decay=weight_decay)
+    sk = fa.adamw_init(pk, **hyper)
+    sp = fa.adamw_init(pp, **hyper)
+    for g in grads:
+        fa.fused_adamw_(sk, g)
+        sp.count.add_(1)
+        fa.adamw_plain_(sp.params, g, sp.exp_avg, sp.exp_avg_sq,
+                        sp.hyper, sp.count)
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item()
+              for pair in ((pk, pp), (sk.exp_avg, sp.exp_avg),
+                           (sk.exp_avg_sq, sp.exp_avg_sq))
+              for a, b in zip(*pair))
+    tol = 1e-6
+    lib_params = [torch.nn.Parameter(p.clone()) for p in base]
+    for p, g in zip(lib_params, grads[0]):
+        p.grad = g
+    lib = torch.optim.AdamW(lib_params, lr=lr, betas=(b1, b2), eps=1e-8,
+                            weight_decay=weight_decay, fused=True)
+    b_ms, b_by = bound_ms(28.0 * n, 15.0 * n, "float32")
+    row = {"kernel": "fused_adamw", "params": n, "leaves": len(shapes),
+           "max_abs_err": err, "tol": tol,
+           "ms": cuda_time(lambda: fa.fused_adamw_(sk, grads[0])),
+           "plain_ms": cuda_time(lambda: fa.adamw_plain_(
+               sp.params, grads[0], sp.exp_avg, sp.exp_avg_sq, sp.hyper,
+               sp.count)),
+           "library_ms": cuda_time(lib.step), "bound_ms": b_ms,
+           "bound_by": b_by}
+    if not err <= tol:
+        raise SystemExit(f"AdamW kernel disagrees with its plain version: "
+                         f"{row}")
+    return row
+
+
 def check_adamw(torch, fa, models):
     """Kernel vs plain AdamW over generator- and discriminator-size
     parameter sets, 3 steps; timed per network update."""
@@ -272,48 +335,16 @@ def check_adamw(torch, fa, models):
     rows = []
     for net in ("generator", "discriminator"):
         shapes = [p.shape for p in getattr(models, net).parameters()]
-        n = sum(int(torch.Size(s).numel()) for s in shapes)
-        base = [torch.randn(s, device="cuda", generator=gen) for s in shapes]
-        grads = [[torch.randn(s, device="cuda", generator=gen)
-                  for s in shapes] for _ in range(3)]
-        pk = [p.clone() for p in base]
-        pp = [p.clone() for p in base]
-        sk = fa.adamw_init(pk, lr=2e-4, b1=0.8, b2=0.99)
-        sp = fa.adamw_init(pp, lr=2e-4, b1=0.8, b2=0.99)
-        for g in grads:
-            fa.fused_adamw_(sk, g)
-            sp.count.add_(1)
-            fa.adamw_plain_(sp.params, g, sp.exp_avg, sp.exp_avg_sq,
-                            sp.hyper, sp.count)
-        torch.cuda.synchronize()
-        err = max((a - b).abs().max().item()
-                  for pair in ((pk, pp), (sk.exp_avg, sp.exp_avg),
-                               (sk.exp_avg_sq, sp.exp_avg_sq))
-                  for a, b in zip(*pair))
-        tol = 1e-6
-        lib_params = [torch.nn.Parameter(p.clone()) for p in base]
-        for p, g in zip(lib_params, grads[0]):
-            p.grad = g
-        lib = torch.optim.AdamW(lib_params, lr=2e-4, betas=(0.8, 0.99),
-                                eps=1e-8, weight_decay=1e-2, fused=True)
-        b_ms, b_by = bound_ms(28.0 * n, 15.0 * n, "float32")
-        row = {"kernel": "fused_adamw", "network": net, "params": n,
-               "leaves": len(shapes), "max_abs_err": err, "tol": tol,
-               "ms": cuda_time(lambda: fa.fused_adamw_(sk, grads[0])),
-               "plain_ms": cuda_time(lambda: fa.adamw_plain_(
-                   sp.params, grads[0], sp.exp_avg, sp.exp_avg_sq, sp.hyper,
-                   sp.count)),
-               "library_ms": cuda_time(lib.step), "bound_ms": b_ms,
-               "bound_by": b_by}
+        row = {"network": net, **adamw_row(torch, fa, shapes, gen, lr=2e-4,
+                                           b1=0.8, b2=0.99,
+                                           weight_decay=1e-2)}
         rows.append(row)
-        print(f"[adamw] {net} ({n} params, {len(shapes)} leaves): max|err| "
-              f"{err:.3e} (tol {tol:g}) kernel {row['ms']:.4f} ms plain "
+        print(f"[adamw] {net} ({row['params']} params, {row['leaves']} "
+              f"leaves): max|err| {row['max_abs_err']:.3e} (tol "
+              f"{row['tol']:g}) kernel {row['ms']:.4f} ms plain "
               f"{row['plain_ms']:.4f} ms library {row['library_ms']:.4f} ms "
-              f"bound {b_ms:.4f} ms", flush=True)
-        if not err <= tol:
-            raise SystemExit(f"AdamW kernel disagrees with its plain version: "
-                             f"{row}")
-        summary["max_abs_err"] = max(summary["max_abs_err"], err)
+              f"bound {row['bound_ms']:.4f} ms", flush=True)
+        summary["max_abs_err"] = max(summary["max_abs_err"], row["max_abs_err"])
         for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
             summary[key] += row[key]
     return rows, summary
@@ -564,6 +595,408 @@ def check_trainer(torch, counters, bare_ms: float, card: str):
     return report
 
 
+def dtw_bound(dtw_ends, t1: int, t2: int):
+    """Bytes and operations bound of one ``dtw_alignment_batched`` call over
+    the valid blocks of ``dtw_ends``: each valid cell reads its cost and
+    writes and reads back its DP value (12 bytes, 3 f32 operations), the
+    ends are read and the alignments written; and the dependency chain, the
+    longest slot's ``lt + lp - 1`` anti-diagonals plus its backtrace of up
+    to ``lt + lp`` steps."""
+    cells = sum((i + 1) * (j + 1) for i, j in dtw_ends if i >= 0 and j >= 0)
+    nbytes = 12.0 * cells + 8.0 * len(dtw_ends) + 4.0 * len(dtw_ends) * t1
+    chain = max([2 * (i + j + 2) - 1 for i, j in dtw_ends if i >= 0 and j >= 0]
+                or [0])
+    return nbytes, 3.0 * cells, chain
+
+
+def check_dtw(torch, dtw):
+    """``dtw_align_kernel`` against its plain version on the card: the
+    alignments must be identical at the mixed corpus's slot shapes (24 slots
+    of up to 259 x 259, one empty), a long real-utterance case (500 x 600)
+    and the edges (an empty slot, 1 x N, N x 1, T1 > T2, ends short of the
+    padded shape, integer costs that tie). Kernel and plain ms from CUDA
+    events at the first two."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+
+    def ends_between(s, lo, t1, t2):
+        return np.stack([rng.integers(lo, t1, s), rng.integers(lo, t2, s)],
+                        1).astype(np.int32)
+
+    mixed_ends = ends_between(24, 129, 259, 259)
+    mixed_ends[0] = (258, 258)
+    mixed_ends[1] = (-1, -1)
+    cases = [("mixed corpus slots", (24, 259, 259), mixed_ends),
+             ("long utterance", (1, 500, 600), np.array([[499, 599]], np.int32)),
+             ("empty slot", (2, 40, 40), np.array([[-1, -1], [39, 39]], np.int32)),
+             ("1 x N", (2, 1, 300), np.array([[0, 299], [0, 10]], np.int32)),
+             ("N x 1", (2, 300, 1), np.array([[299, 0], [10, 0]], np.int32)),
+             ("T1 > T2", (3, 400, 150), np.array([[399, 149], [250, 60],
+                                                   [399, 3]], np.int32)),
+             ("ends short of the shape", (4, 200, 200),
+              ends_between(4, 1, 150, 120)),
+             ("integer costs (ties)", (4, 120, 90),
+              ends_between(4, 60, 120, 90))]
+    rows, summary = [], None
+    for name, shape, ends in cases:
+        values = (rng.integers(0, 3, shape) if "ties" in name
+                  else rng.random(shape))
+        costs = torch.from_numpy(values.astype(np.float32)).cuda()
+        ends_t = torch.from_numpy(ends).cuda()
+        got = dtw.dtw_alignment_batched(costs, ends_t)
+        want = dtw.dtw_alignment_plain(costs, ends_t)
+        torch.cuda.synchronize()
+        mismatched = int((got != want).sum())
+        nbytes, ops, chain = dtw_bound(ends.tolist(), shape[1], shape[2])
+        b_ms, b_by = bound_ms(nbytes, ops, "float32")
+        row = {"case": name, "shape": list(shape), "mismatched_rows":
+               mismatched, "max_abs_err": float((got - want).abs().max()),
+               "bound_ms": b_ms, "bound_by": b_by, "chain_steps": chain}
+        if name in ("mixed corpus slots", "long utterance"):
+            row.update(ms=cuda_time(lambda: dtw.dtw_alignment_batched(
+                costs, ends_t)), plain_ms=cuda_time(
+                lambda: dtw.dtw_alignment_plain(costs, ends_t), reps=2,
+                warmup=1))
+        rows.append(row)
+        print(f"[dtw] {name} {list(shape)}: identical {mismatched == 0}"
+              + (f"; kernel {row['ms']:.4f} ms plain {row['plain_ms']:.2f} ms "
+                 f"bound {b_ms:.5f} ms ({b_by}); chain of {chain} dependent "
+                 f"steps" if "ms" in row else ""), flush=True)
+        if mismatched:
+            raise SystemExit(f"dtw_align_kernel disagrees with its plain "
+                             f"version: {row}")
+        if summary is None:
+            summary = {k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by")}
+            summary["library_ms"] = None
+    return rows, summary
+
+
+def encoder_items(rng, budget: int, silent_fraction: float = 0.0,
+                  frames=(130, 260)):
+    """Numpy-seeded utterances of ``frames`` [lo, hi) 50 Hz frames (by
+    default the synthetic corpus's lengths) up to ``budget`` EMG samples;
+    silent ones get targets of another length, as a silent recording's
+    parallel voiced targets have."""
+    from ste_gan_torch import constants as C
+
+    items, total = [], 0
+    while True:
+        n = int(rng.integers(*frames))
+        if total + 16 * n > budget:
+            return items
+        silent = bool(rng.random() < silent_fraction)
+        target = int(rng.integers(*frames)) if silent else n
+        items.append({
+            C.DataType.REAL_EMG: np.tanh(rng.normal(
+                0, 0.5, (16 * n, 8))).astype(np.float32),
+            C.DataType.SPEECH_UNITS: rng.normal(
+                size=(target, 256)).astype(np.float32),
+            C.DataType.PHONEMES: rng.integers(0, 48, target).astype(np.int32),
+            C.DataType.SPEAKING_MODE_ID: (C.SpeakingMode.SILENT if silent
+                                          else C.SpeakingMode.NORMAL)})
+        total += 16 * n
+
+
+def silent_fold_dims(items):
+    """The fold's silent slot arguments for ``items`` (empty: none)."""
+    from ste_gan_torch import constants as C
+
+    silent = [it for it in items
+              if it[C.DataType.SPEAKING_MODE_ID] != C.SpeakingMode.NORMAL]
+    if not silent:
+        return {}
+    return {"max_silent": len(silent),
+            "silent_target_frames": max(len(it[C.DataType.PHONEMES])
+                                        for it in silent),
+            "silent_pred_frames": max(len(it[C.DataType.REAL_EMG]) // 16
+                                      for it in silent)}
+
+
+def encoder_reference_steps(torch, tenc, base, batches, t_pred: int,
+                            device: str):
+    """Losses of train steps of a copy of ``base`` on ``device``, one per
+    batch, from the same seeded state (so the same shifts)."""
+    import copy
+
+    model = copy.deepcopy(base).to(device)
+    state = tenc.init_train_state(model)
+    step = tenc.make_encoder_train_step(model, 16, silent_pred_frames=t_pred)
+    losses = []
+    for batch in batches:
+        tenc.set_learning_rate(state.opt, 1e-3)
+        _, metrics = step(state, {k: torch.from_numpy(np.asarray(v)).to(device)
+                                  for k, v in batch.items()})
+        losses.append(float(metrics["loss"]))
+    return losses
+
+
+def check_encoder_reference(torch, tenc, init_emg_encoder, Config):
+    """Two narrow f32 encoder train steps, voiced and mixed, through the
+    kernels on the card and the plain versions on the CPU, same weights,
+    batches and shifts (dropout 0, TF32 off). Tolerance rtol 1e-3."""
+    from ste_gan_torch.train.encoder_data import fold_encoder_batch
+
+    cfg = Config()
+    cfg.emg_encoder.params = {"model_size": 32, "num_transformer_layers": 1,
+                              "num_heads": 4, "dim_feedforward": 64,
+                              "dropout": 0.0}
+    base = init_emg_encoder(cfg, torch.float32,
+                            torch.Generator().manual_seed(0))
+    out = {}
+    for mode, fraction in (("voiced", 0.0), ("mixed", 0.5)):
+        rng = np.random.default_rng(3 if mode == "voiced" else 4)
+        batches = []
+        for _ in range(2):
+            items = encoder_items(rng, 6400, fraction, frames=(30, 70))
+            batches.append(fold_encoder_batch(
+                items, n_win=4, max_samples=16,
+                **silent_fold_dims(items)).as_dict())
+        t_pred = int(max(b.get("silent_pred_len", np.zeros(1)).max()
+                         for b in batches))
+        if mode == "mixed" and t_pred == 0:
+            raise SystemExit("the mixed batches hold no silent sample")
+        results = {device: {f"{mode} step {i}": v for i, v in enumerate(
+            encoder_reference_steps(torch, tenc, base, batches, t_pred,
+                                    device))}
+                   for device in ("cuda", "cpu")}
+        out[mode] = {"worst_rel": worst_relative(results, f"narrow {mode} "
+                                                           f"encoder step"),
+                     **results}
+    print(f"[encoder] narrow f32 encoder steps, cuda vs cpu: worst relative "
+          f"loss difference voiced {out['voiced']['worst_rel']:.3e}, mixed "
+          f"{out['mixed']['worst_rel']:.3e} (tol 1e-3)", flush=True)
+    return out
+
+
+def time_encoder_step(torch, tenc, model, batch, silent_pred_frames=0,
+                      warmup=3, timed=10):
+    state = tenc.init_train_state(model)
+    step = tenc.make_encoder_train_step(model, 160, silent_pred_frames)
+    tenc.set_learning_rate(state.opt, 3e-4)
+    losses = []
+    for _ in range(warmup):
+        _, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        _, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / timed, [float(x) for x in losses]
+
+
+def check_encoder_step(torch, tenc, fa, dtw, load_config, init_emg_encoder,
+                       card):
+    """The bare encoder train step at full width
+    (``configs/emg_encoder/conv_transformer.yaml``: 768 wide, 4 ResBlocks,
+    6 layers, FFN 3072, dropout 0.2) on numpy-seeded folded batches of 80
+    windows (the 128k-sample packing budget), 3 warm-up and 10 timed steps
+    each: a voiced batch with PyTorch's default precision settings (cuDNN
+    convolutions in TF32, matrix products in f32: what the trainer CLI
+    gets), the same with TF32 off, and a mixed batch (a quarter of the
+    utterances silent) with the mixed corpus's DTW dimensions (24 silent
+    slots, 259 target and 259 prediction frames) and the defaults. Every
+    loss finite; AdamW launched once per step, DTW once per mixed step.
+    Then AdamW at the encoder's parameter set against its plain version."""
+    from ste_gan_torch import constants as C
+    from ste_gan_torch.train.encoder_data import fold_encoder_batch
+
+    cfg = load_config(emg_enc_cfg=str(ROOT / "configs" / "emg_encoder"
+                                      / "conv_transformer.yaml"))
+    model = init_emg_encoder(cfg, torch.float32,
+                             torch.Generator().manual_seed(0)).cuda()
+    n_params = sum(p.numel() for p in model.parameters())
+    mixed_dims = {"max_silent": 24, "silent_target_frames": 259,
+                  "silent_pred_frames": 259}
+    batches = {}
+    for mode, fraction, dims in (("voiced", 0.0, {}),
+                                 ("mixed", 0.25, mixed_dims)):
+        items = encoder_items(np.random.default_rng(8), 128_000, fraction)
+        n_silent = sum(it[C.DataType.SPEAKING_MODE_ID] != C.SpeakingMode.NORMAL
+                       for it in items)
+        if mode == "mixed" and not 0 < n_silent <= 24:
+            raise SystemExit(f"the mixed batch holds {n_silent} silent "
+                             f"utterances, not 1-24")
+        host = fold_encoder_batch(items, n_win=80, max_samples=160,
+                                  **dims).as_dict()
+        batches[mode] = ({k: torch.from_numpy(np.asarray(v)).cuda()
+                          for k, v in host.items()},
+                         sum(len(it[C.DataType.REAL_EMG]) for it in items),
+                         len(items), n_silent)
+    report = {"params": n_params, "windows": 80, "window_samples": 80 * 1600}
+    for name, mode, tf32 in (("default", "voiced", True),
+                             ("tf32_off", "voiced", False),
+                             ("mixed", "mixed", True)):
+        batch, samples, n_items, n_silent = batches[mode]
+        t_pred = mixed_dims["silent_pred_frames"] if mode == "mixed" else 0
+        torch.backends.cudnn.allow_tf32 = tf32
+        fa.fused_adamw_.launches = dtw.dtw_alignment_batched.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        sec, losses = time_encoder_step(torch, tenc, model, batch, t_pred)
+        steps = len(losses)
+        launches = {"fused_adamw": fa.fused_adamw_.launches,
+                    "dtw": dtw.dtw_alignment_batched.launches}
+        want = {"fused_adamw": steps, "dtw": steps if t_pred else 0}
+        bad = [x for x in losses if x != x or abs(x) == float("inf")]
+        if bad or launches != want:
+            raise SystemExit(f"full-width encoder step ({name}): losses "
+                             f"{losses}, launches {launches}, expected {want}")
+        report[name] = {"ms_per_step": 1e3 * sec, "emg_samples": samples,
+                        "utterances": n_items, "silent_utterances": n_silent,
+                        "emg_samples_per_s": samples / sec,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                        "launches_per_step": {k: v / steps
+                                              for k, v in launches.items()},
+                        "losses": losses}
+        print(f"[encoder-step] full width ({n_params} params), {mode} batch "
+              f"of {n_items} utterances ({n_silent} silent) in 80 windows x "
+              f"1600 samples ({samples} EMG samples), cuDNN TF32 "
+              f"{'on' if tf32 else 'off'}: {1e3 * sec:.2f} ms/step, "
+              f"{samples / sec:.1f} EMG samples/s, peak "
+              f"{report[name]['peak_gib']:.2f} GiB, launches per step "
+              f"{json.dumps(report[name]['launches_per_step'])} ({card})",
+              flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+
+    # AdamW at the encoder's parameter set: kernel against plain, timed
+    # with the library's.
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    shapes = [p.shape for p in model.parameters()]
+    a = report["adamw"] = adamw_row(torch, fa, shapes, gen, lr=3e-4, b1=0.9,
+                                    b2=0.999, weight_decay=1e-5)
+    print(f"[encoder-step] AdamW over the encoder ({a['params']} params, "
+          f"{a['leaves']} leaves): max|err| {a['max_abs_err']:.3e} (tol "
+          f"{a['tol']:g}) kernel {a['ms']:.4f} ms plain {a['plain_ms']:.4f} "
+          f"ms library {a['library_ms']:.4f} ms bound {a['bound_ms']:.4f} ms "
+          f"({a['bound_by']}) ({card})", flush=True)
+    return report
+
+
+def check_encoder_trainer(torch, counters, card):
+    """The encoder trainer CLI at full width on the port's synthetic corpus
+    (96/24/16 utterances): voiced for 3 epochs, then mixed
+    (``--silent_fraction 0.25``, ``--include_silent``) for 2, with the
+    launch counts zeroed before each run and read after it. Then
+    ``best_val_loss_model.pt`` loads strictly into ``build_models``'s frozen
+    encoder through the GAN trainer's ``load_frozen_encoder``. The runs use
+    PyTorch's default precision settings, as the CLI does."""
+    import shutil
+
+    import yaml
+
+    from ste_gan_torch.config import load_config
+    from ste_gan_torch.data import synthetic
+    from ste_gan_torch.models.emg_encoder import init_emg_encoder
+    from ste_gan_torch.train import encoder as tenc
+    from ste_gan_torch.train.gan import build_models
+    from ste_gan_torch.train.train_gan import load_frozen_encoder
+
+    work = ROOT / "build" / "chip_smoke_encoder"
+    shutil.rmtree(work, ignore_errors=True)
+    enc_yaml = ROOT / "configs" / "emg_encoder" / "conv_transformer.yaml"
+    torch.backends.cudnn.allow_tf32 = True
+    report = {}
+    try:
+        for mode, data_yaml, fraction, epochs in (
+                ("voiced", "synthetic.yaml", "0.0", 3),
+                ("mixed", "synthetic_mixed.yaml", "0.25", 2)):
+            root = work / f"corpus_{mode}"
+            t0 = time.perf_counter()
+            synthetic.main(["--root", str(root), "--silent_fraction",
+                            fraction])
+            corpus_s = time.perf_counter() - t0
+            with open(ROOT / "configs" / "data" / data_yaml) as fp:
+                data = yaml.safe_load(fp)
+            data["dataset_root"] = str(root)
+            (work / data_yaml).write_text(yaml.safe_dump(data))
+            argv = ["--config", str(ROOT / "configs" / "ste_gan_base_gantts.yaml"),
+                    "--data", str(work / data_yaml), "--emg_enc_cfg",
+                    str(enc_yaml), "--exp_dir", str(work / "exp"),
+                    "--num_epochs", str(epochs)]
+            if mode == "mixed":
+                argv.append("--include_silent")
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            tenc.main(tenc.parse_args(argv))
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in counters.items()}
+            want = ("fused_adamw", "dtw") if mode == "mixed" else ("fused_adamw",)
+            missing = [name for name in want if launches[name] <= 0]
+            if missing:
+                raise SystemExit(f"kernels never launched by the {mode} "
+                                 f"encoder trainer: {missing}")
+            suffix = "_mixed" if mode == "mixed" else "_voiced_only"
+            run = work / "exp" / tenc.create_output_dir_name(
+                root, "EMGEncoderTransformer" + suffix)
+            for entry in (".done", "config.yaml", "metrics.jsonl",
+                          "best_val_loss_model.pt", "last_model.pt"):
+                if not (run / entry).exists():
+                    raise SystemExit(f"encoder run dir lacks {entry}")
+            logged = {}
+            for line in (run / "metrics.jsonl").read_text().splitlines():
+                rec = json.loads(line)
+                logged.setdefault(rec["tag"], []).append(rec["value"])
+            losses = logged["train/loss"] + logged["val/loss"]
+            if any(x != x or abs(x) == float("inf") for x in losses):
+                raise SystemExit(f"non-finite encoder losses: {losses}")
+            steps = len(logged["train/loss"])
+            report[mode] = {
+                "corpus_s": corpus_s, "run_s": run_s, "launches": launches,
+                "steps": steps, "train_loss": logged["train/loss"],
+                "val_loss": logged["val/loss"],
+                "epoch_train_s": logged["perf/epoch_train_s"],
+                "validation_s": logged["perf/validation_s"],
+                "save_s": logged["perf/save_s"],
+                "launches_per_step": {k: v / steps for k, v in launches.items()}}
+            print(f"[encoder-trainer] {mode}: {epochs} epochs, {steps} steps "
+                  f"in {run_s:.1f} s; launches {launches}; val loss "
+                  f"{logged['val/loss']}; epoch train s "
+                  f"{json.dumps(logged['perf/epoch_train_s'])}, validation s "
+                  f"{json.dumps(logged['perf/validation_s'])}, blocking save s "
+                  f"{json.dumps(logged['perf/save_s'])} ({card})", flush=True)
+
+        # The hand-off: the GAN trainer's loader takes the encoder strictly,
+        # its weights equal the file's bit for bit, and its outputs equal
+        # the saved encoder's (f32, TF32 off; cuDNN may pick another
+        # algorithm for another model, so outputs are held to 1e-5 of their
+        # largest value, the weights exactly).
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = load_config(str(ROOT / "configs" / "ste_gan_base_gantts.yaml"),
+                          str(work / "synthetic_mixed.yaml"), str(enc_yaml))
+        cfg.train.mixed_precision = False
+        best = run / "best_val_loss_model.pt"
+        models = build_models(cfg, seed=1, device="cuda")
+        load_frozen_encoder(models, best)
+        state = torch.load(best, weights_only=True)
+        same_weights = all(torch.equal(v.cpu(), state[k]) for k, v in
+                           models.encoder.state_dict().items())
+        saved = init_emg_encoder(cfg, torch.float32).cuda()
+        saved.load_state_dict(state, strict=True)
+        emg = torch.from_numpy(np.tanh(np.random.default_rng(9).normal(
+            0, 0.5, (4, 4096, 8))).astype(np.float32)).cuda()
+        with torch.no_grad():
+            rel = max(float((a - b).abs().max() / b.abs().max())
+                      for a, b in zip(models.encoder(emg), saved(emg)))
+        print(f"[encoder-trainer] {best.name} loads strictly into the GAN "
+              f"trainer's frozen encoder: weights equal {same_weights}, "
+              f"outputs within {rel:.3e} of the saved encoder's (tol 1e-5)",
+              flush=True)
+        if not same_weights or not rel <= 1e-5:
+            raise SystemExit("the GAN trainer's frozen encoder differs from "
+                             "the trained one")
+        report["handoff"] = {"weights_equal": same_weights,
+                             "outputs_max_rel": rel}
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        shutil.rmtree(work, ignore_errors=True)
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -662,6 +1095,25 @@ def main() -> int:
     print(f"[step] again after the trainer: {after_ms:.2f} ms/step ({card})",
           flush=True)
 
+    # ---- Encoder pre-training: the DTW kernel, the narrow reference, the
+    # full-width step and the encoder trainer CLI. ----
+    from ste_gan_torch.config import load_config
+    from ste_gan_torch.models.emg_encoder import init_emg_encoder
+    from ste_gan_torch.ops import dtw
+    from ste_gan_torch.train import encoder as tenc
+
+    dtw_rows, dtw_summary = check_dtw(torch, dtw)
+    report["dtw"] = dtw_rows
+    report["encoder_reference"] = check_encoder_reference(
+        torch, tenc, init_emg_encoder, Config)
+    report["encoder_step"] = check_encoder_step(
+        torch, tenc, fa, dtw, load_config, init_emg_encoder, card)
+    report["encoder_trainer"] = check_encoder_trainer(
+        torch, {"fused_adamw": fa.fused_adamw_,
+                "dtw": dtw.dtw_alignment_batched}, card)
+    enc_launches = {mode: report["encoder_trainer"][mode]["launches"]
+                    for mode in ("voiced", "mixed")}
+
     source = {"grouped_conv_fwd": "ste_gan_torch/csrc/grouped_conv.cu",
               "grouped_conv_dx": "ste_gan_torch/csrc/grouped_conv.cu",
               "grouped_conv_dw": "ste_gan_torch/csrc/grouped_conv.cu",
@@ -683,6 +1135,24 @@ def main() -> int:
                 "trainer_launches": report["trainer"]["launches"][name],
                 **summaries[name]}
                for name in counters]
+    enc_adamw = report["encoder_step"]["adamw"]
+    kernels[-1]["encoder_path"] = {
+        "trainer_launches": {m: n["fused_adamw"]
+                             for m, n in enc_launches.items()},
+        "step_launches_per_step": report["encoder_step"]["default"][
+            "launches_per_step"]["fused_adamw"],
+        **{k: enc_adamw[k] for k in ("params", "leaves", "max_abs_err", "tol",
+                                     "ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by")}}
+    kernels.append({
+        "name": "dtw", "route": "cuda", "source": "ste_gan_torch/csrc/dtw.cu",
+        "kernel": "dtw_align_kernel",
+        "replaces": "ste_gan_tpu/ops/dtw.py:36",
+        "launches": enc_launches["mixed"]["dtw"],
+        "launches_on": "the mixed encoder trainer run",
+        "mixed_step_launches_per_step": report["encoder_step"]["mixed"][
+            "launches_per_step"]["dtw"],
+        **dtw_summary})
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

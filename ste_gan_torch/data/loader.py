@@ -201,7 +201,8 @@ def to_device(batch: Dict[str, Optional[np.ndarray]], device: torch.device,
             continue
         if float_dtype is not None and value.dtype == np.float32:
             value = value.astype(float_dtype)
-        t = torch.from_numpy(np.ascontiguousarray(value))
+        # np.require keeps a 0-d value 0-d (ascontiguousarray makes it 1-d).
+        t = torch.from_numpy(np.require(value, requirements="C"))
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
         else:

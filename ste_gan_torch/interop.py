@@ -11,7 +11,8 @@ the same layout, so :func:`load_generator`, :func:`load_discriminator` and
 
 :func:`train_state_from_jax` carries a whole JAX train state (parameters,
 spectral state, optax AdamW moments, EMA, step) into the port's models and
-state, in place.
+state, in place; :func:`encoder_train_state_from_jax` does the same for the
+encoder pre-training state.
 
 Spectral ``v``: the exported state dict recomputes ``v = normalize(Wᵀu)``,
 as the JAX exporter does. :func:`load_discriminator` instead carries the JAX
@@ -238,6 +239,22 @@ def train_state_from_jax(jstate, models, state) -> None:
     if state.gen_ema is not None:
         _copy_by_name(state.gen_ema, gen_names,
                       generator_params_to_state_dict(jstate.gen_ema, sft))
+    state.step = int(np.asarray(jstate.step))
+
+
+def encoder_train_state_from_jax(jstate, model: torch.nn.Module, state) -> None:
+    """Carry a JAX ``EncoderTrainState`` into the port's encoder and
+    ``EncoderTrainState``, in place: parameters and BatchNorm statistics,
+    the optax AdamW moments, count and learning rate, and the step."""
+    load_encoder(model, {"params": jstate.params,
+                         "batch_stats": jstate.batch_stats})
+    names = [n for n, _ in model.named_parameters()]
+    mu, nu, count, lr = _adam_inner(jstate.opt_state)
+    for moments, tree in ((state.opt.exp_avg, mu), (state.opt.exp_avg_sq, nu)):
+        _copy_by_name(moments, names, encoder_variables_to_state_dict(
+            {"params": tree, "batch_stats": jstate.batch_stats}))
+    state.opt.count.fill_(count)
+    state.opt.hyper[0].fill_(lr)
     state.step = int(np.asarray(jstate.step))
 
 

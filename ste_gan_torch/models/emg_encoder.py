@@ -4,8 +4,13 @@ phoneme logits). Counterpart of ``ste_gan_tpu/models/emg_encoder.py``.
 Four stride-2 BatchNorm ResBlocks (x16 downsampling), a linear projection,
 post-norm transformer layers with relative positions, and two linear heads.
 In the GAN step the encoder is frozen and runs in eval mode (running
-statistics, no dropout); gradients still flow to its input. The train-only
-random shift of encoder pre-training is not part of this port yet.
+statistics, no dropout); gradients still flow to its input.
+
+Like the flax module, the mode is an argument of the forward, not the
+module's ``training`` flag. ``train=True`` (encoder pre-training) applies
+the random left shift it is given, normalises with the batch statistics and
+updates the running ones with flax's semantics (see :func:`batch_norm`),
+and draws dropout from the ``torch.Generator`` it is given.
 
 Takes channel-last ``[B, T, C]`` EMG; module paths follow the reference
 state-dict layout (``conv_blocks.i``, ``transformer.layers.i``).
@@ -24,9 +29,26 @@ from ste_gan_torch.models.transformer import (
 from ste_gan_torch.ops.conv import Conv
 
 
-def batch_norm(x, bn: nn.BatchNorm1d, dtype):
-    """BatchNorm computed in f32 (statistics are f32), result in ``dtype``."""
-    return bn(x.float()).to(dtype)
+def batch_norm(x, bn: nn.BatchNorm1d, dtype, train: bool = False):
+    """BatchNorm of ``x [B, C, T]`` computed in f32, result in ``dtype``.
+
+    Eval: the running statistics. Train: flax's ``nn.BatchNorm(momentum=0.9)``,
+    not torch's train mode: normalise with the biased batch variance over
+    (batch, time), and move the running statistics by ``0.1`` towards the
+    batch mean and the *biased* batch variance (torch would use the
+    unbiased one), without gradient. The ``BatchNorm1d`` module holds the
+    parameters and buffers in the reference layout."""
+    xf = x.float()
+    if not train:
+        return F.batch_norm(xf, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps).to(dtype)
+    with torch.no_grad():
+        var, mean = torch.var_mean(xf, dim=(0, 2), correction=0)
+        decay = 1.0 - bn.momentum
+        bn.running_mean.copy_(decay * bn.running_mean + bn.momentum * mean)
+        bn.running_var.copy_(decay * bn.running_var + bn.momentum * var)
+    return F.batch_norm(xf, None, None, bn.weight, bn.bias, True, 0.0,
+                        bn.eps).to(dtype)
 
 
 class ResBlock(nn.Module):
@@ -48,13 +70,13 @@ class ResBlock(nn.Module):
                                       dtype=dtype, generator=generator)
             self.res_norm = nn.BatchNorm1d(features, eps=1e-5, momentum=0.1)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         dt = self.dtype
-        h = F.relu(batch_norm(self.conv1(x), self.bn1, dt))
-        h = batch_norm(self.conv2(h), self.bn2, dt)
+        h = F.relu(batch_norm(self.conv1(x), self.bn1, dt, train))
+        h = batch_norm(self.conv2(h), self.bn2, dt, train)
         res = x
         if self.residual_path is not None:
-            res = batch_norm(self.residual_path(x), self.res_norm, dt)
+            res = batch_norm(self.residual_path(x), self.res_norm, dt, train)
         return F.relu(h + res)
 
 
@@ -73,6 +95,7 @@ class EMGEncoderTransformer(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
+        self.dropout = dropout
         blocks, cin = [], num_ins
         for _ in range(1 + num_extra_res_blocks):
             blocks.append(ResBlock(cin, model_size, 2, dtype, generator))
@@ -89,16 +112,45 @@ class EMGEncoderTransformer(nn.Module):
         self.w_out = torch_linear(model_size, num_outs, generator)
         self.w_aux = torch_linear(model_size, num_aux_outs, generator)
 
-    def forward(self, x_raw) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _frontend(self, x_raw, train: bool, shift: int) -> torch.Tensor:
+        """Shift augmentation, strided ResBlocks and the input projection.
+        ``shift = r`` moves every window left by ``r`` samples and fills its
+        last ``r`` with zeros, as the JAX roll-and-mask does (reference
+        random shift in [0, 8), ste_gan/models/emg_encoder.py:71-75); the
+        caller draws ``r``."""
         dt = self.dtype
-        x = x_raw.to(dt).transpose(1, 2)
+        x = x_raw.to(dt)
+        if train and shift:
+            x = F.pad(x[:, shift:], (0, 0, 0, shift))
+        x = x.transpose(1, 2)
         for block in self.conv_blocks:
-            x = block(x)
-        x = linear(x.transpose(1, 2), self.w_raw_in, dt)
+            x = block(x, train)
+        return linear(x.transpose(1, 2), self.w_raw_in, dt)
+
+    def forward(self, x_raw, train: bool = False, shift: int = 0,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``train=True``: shift by ``shift``, batch statistics (running ones
+        updated in place) and dropout drawn from ``generator`` (on the
+        input's device; required when dropout is on)."""
+        if train and self.dropout > 0 and generator is None:
+            raise ValueError("a train-mode forward with dropout needs a "
+                             "torch.Generator for its masks")
+        dt = self.dtype
+        x = self._frontend(x_raw, train, shift)
         for layer in self.transformer.layers:
-            x = layer(x)
+            x = layer(x, generator if train else None)
         return (linear(x, self.w_out, dt).float(),
                 linear(x, self.w_aux, dt).float())
+
+    def embed(self, x_raw) -> torch.Tensor:
+        """Pre-head transformer-stack activations ``[B, T/16, model_size]``
+        f32 in eval mode: the embedding space of the Fréchet realism metric
+        (no training objective touches it directly)."""
+        x = self._frontend(x_raw, False, 0)
+        for layer in self.transformer.layers:
+            x = layer(x)
+        return x.float()
 
 
 def init_emg_encoder(cfg, dtype=torch.float32,

@@ -8,6 +8,12 @@ table is re-indexed to ``[L, L]`` with the pad/reshape skew, and beyond
 ``max_distance`` frames the table is zero-padded and offsets outside the
 window get a -1e8 logit. The embedding keeps the reference's trailing
 singleton dimension, ``[H, 2*max_distance-1, Dh, 1]``.
+
+Dropout is applied where flax applies it (after the attention softmax, on
+the attention output, and twice in the FFN) only when a forward is given a
+``torch.Generator``: the masks come from that generator and nothing else,
+and kept values are scaled by ``1/keep``. Without one (the eval path and
+the frozen encoder of the GAN step) no dropout runs.
 """
 from __future__ import annotations
 
@@ -37,6 +43,18 @@ def torch_linear(fan_in: int, fan_out: int, generator=None) -> nn.Linear:
         layer.weight.uniform_(-bound, bound, generator=generator)
         layer.bias.uniform_(-bound, bound, generator=generator)
     return layer
+
+
+def dropout(x, rate: float, generator: Optional[torch.Generator]):
+    """flax's ``nn.Dropout``: keep each value with probability ``1 - rate``
+    and scale it by ``1/(1 - rate)``; masks drawn from ``generator``. The
+    identity when ``generator`` is None or ``rate`` is 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
 
 
 def layer_norm(x, norm: nn.LayerNorm, dtype):
@@ -99,13 +117,13 @@ class MultiHeadAttention(nn.Module):
         self.w_k = param((num_heads, d_model, d_qkv), std)
         self.w_v = param((num_heads, d_model, d_qkv), std)
         self.w_o = param((num_heads, d_qkv, d_model), std_o)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout_rate = dropout
         self.relative_positional = (
             RelativePositionalLogits(relative_positional_distance, num_heads,
                                      d_qkv, dtype, generator)
             if relative_positional else None)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         dt = self.dtype
         xc = x.to(dt)
         q = torch.einsum("btf,hfa->bhta", xc, self.w_q.to(dt))
@@ -115,7 +133,8 @@ class MultiHeadAttention(nn.Module):
             self.d_qkv)
         if self.relative_positional is not None:
             logits = logits + self.relative_positional(q).float()
-        probs = self.dropout(torch.softmax(logits, dim=-1).to(dt))
+        probs = dropout(torch.softmax(logits, dim=-1).to(dt),
+                        self.dropout_rate, generator)
         o = torch.einsum("bhqk,bhka->bhqa", probs, v)
         return torch.einsum("bhta,haf->btf", o, self.w_o.to(dt))
 
@@ -137,11 +156,13 @@ class TransformerEncoderLayer(nn.Module):
         self.linear2 = torch_linear(dim_feedforward, d_model, generator)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout_rate = dropout
 
-    def forward(self, x):
-        dt = self.dtype
-        x = layer_norm(x + self.dropout(self.self_attn(x)), self.norm1, dt)
-        h = self.dropout(F.relu(linear(x, self.linear1, dt)))
-        h = self.dropout(linear(h, self.linear2, dt))
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """``generator`` given: training-mode dropout drawn from it."""
+        dt, p = self.dtype, self.dropout_rate
+        attn = dropout(self.self_attn(x, generator), p, generator)
+        x = layer_norm(x + attn, self.norm1, dt)
+        h = dropout(F.relu(linear(x, self.linear1, dt)), p, generator)
+        h = dropout(linear(h, self.linear2, dt), p, generator)
         return layer_norm(x + h, self.norm2, dt)

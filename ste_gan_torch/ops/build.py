@@ -40,6 +40,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "adamw": {
         "adamw_multi_tensor": [_P] * 7 + [_I, _I, _P, _P, _P],
     },
+    "dtw": {
+        "dtw_align": [_P] * 4 + [_I] * 3 + [_P],
+    },
 }
 
 _lock = threading.Lock()
