@@ -64,7 +64,22 @@ Phases, each fatal on failure:
    ``best_val_loss_model.pt`` loaded strictly by the GAN trainer's
    ``load_frozen_encoder``, its weights equal to the file's and its outputs
    within 1e-5 of the saved encoder's;
-7. the ``kernels`` JSON line, the card line, and the last line
+7. ``[infer]``: the synthesizer (``ste_gan_torch.infer``), narrow f32 on
+   the card against the CPU; at the full width of
+   ``configs/ste_gan_base_gantts.yaml`` (seeded weights, f32, TF32 off)
+   bucketed against exact and streaming interiors against the full
+   utterance (500 frames); the real-time factor at batch 1 x 500 frames
+   and at a bucketed 16 x 64 in f32 with TF32 off and on and in bf16;
+   ``convert_dataset`` over the trainer's synthetic test split, cold and
+   warm; the full-width ``EMGDecoder`` on 10 s and 30 s of EMG, streaming
+   against the full decode;
+8. ``[evaluate]``: ``python -m ste_gan_torch.evaluate gan --full
+   --realism`` on the GAN run directory of phase 5 with the encoder of
+   phase 6, ``evaluate encoder`` voiced and with ``--include_silent`` (its
+   ``dtw_align_kernel`` launches counted), every reported number finite,
+   then ``generate_emg`` on the same run directory. The trainer phases'
+   directories are removed after this phase;
+9. the ``kernels`` JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, when no CUDA device is present or when
@@ -75,6 +90,7 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import sys
 import time
 from pathlib import Path
@@ -85,6 +101,13 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}  # max |kernel - plain| / max |plain|
+#: Max |difference| of the full-width f32 synthesis (TF32 off) between
+#: bucketed and exact, and between streaming interiors and the full
+#: utterance: f32 reduction noise through 41 convs, where cuDNN may pick
+#: another algorithm for another length.
+INFER_TOL = 1e-4
+#: Max |streamed - full| / max |full| of the full-width decoder (TF32 off).
+DECODE_TOL = 1e-4
 #: Small scale discriminator grouped layers: (Cin, Cout, K, stride, groups, pad).
 GROUPED_LAYERS = ((128, 256, 37, 2, 4, 18), (256, 512, 37, 2, 16, 18))
 PAIRED_BATCH = 64
@@ -430,9 +453,9 @@ def check_trainer(torch, counters, bare_ms: float, card: str):
     corpus at its CLI defaults, then ``configs/ste_gan_base_gantts.yaml``
     and ``configs/data/synthetic.yaml`` with short intervals, 10 steps
     (indices 0-9, 4 epochs of 3) and a resume to 12. Launch counts are
-    zeroed before the first run and read after it."""
+    zeroed before the first run and read after it. The run directory
+    (``build/chip_smoke_trainer``) stays for the inference phases."""
     import logging
-    import shutil
 
     import yaml
 
@@ -591,7 +614,8 @@ def check_trainer(torch, counters, bare_ms: float, card: str):
           f"{json.dumps(val_s)}; blocking final save of {ckpt_mb:.0f} MB, s "
           f"by step: {json.dumps(logged['perf/final_save_s'])} ({card})",
           flush=True)
-    shutil.rmtree(work, ignore_errors=True)
+    # The run directory and its corpus stay for [infer] and [evaluate].
+    report.update(run_dir=str(run), corpus=str(work / "synthetic"))
     return report
 
 
@@ -882,9 +906,8 @@ def check_encoder_trainer(torch, counters, card):
     launch counts zeroed before each run and read after it. Then
     ``best_val_loss_model.pt`` loads strictly into ``build_models``'s frozen
     encoder through the GAN trainer's ``load_frozen_encoder``. The runs use
-    PyTorch's default precision settings, as the CLI does."""
-    import shutil
-
+    PyTorch's default precision settings, as the CLI does. The run directories
+    (``build/chip_smoke_encoder``) stay for [evaluate]."""
     import yaml
 
     from ste_gan_torch.config import load_config
@@ -946,6 +969,8 @@ def check_encoder_trainer(torch, counters, card):
                 raise SystemExit(f"non-finite encoder losses: {losses}")
             steps = len(logged["train/loss"])
             report[mode] = {
+                "corpus": str(root), "checkpoint": str(
+                    run / "best_val_loss_model.pt"),
                 "corpus_s": corpus_s, "run_s": run_s, "launches": launches,
                 "steps": steps, "train_loss": logged["train/loss"],
                 "val_loss": logged["val/loss"],
@@ -993,7 +1018,286 @@ def check_encoder_trainer(torch, counters, card):
                              "outputs_max_rel": rel}
     finally:
         torch.backends.cudnn.allow_tf32 = False
-        shutil.rmtree(work, ignore_errors=True)
+    return report
+
+
+def generator_flops(synth, feats, sess) -> float:
+    """Operations of one ``synthesize_batch`` call, counted from the shapes
+    the weight-normalised convs see (2 per multiply-add)."""
+    from ste_gan_torch.ops.conv import WNConv
+
+    total = [0.0]
+
+    def hook(mod, inputs, out):
+        cout, cin_g, k = mod.weight_v.shape
+        total[0] += 2.0 * out.shape[0] * out.shape[2] * cout * cin_g * k
+
+    handles = [m.register_forward_hook(hook) for m in synth.generator.modules()
+               if isinstance(m, WNConv)]
+    try:
+        synth.synthesize_batch(feats, sess)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def check_infer(torch, card, corpus):
+    """The synthesis and decoding layer (``ste_gan_torch.infer``): the
+    narrow f32 synthesizer on the card against the CPU (per-row valid
+    lengths, TF32 off); at the full width of
+    ``configs/ste_gan_base_gantts.yaml`` (768 channels, speech units) with
+    seeded weights, bucketed against exact and streaming interiors against
+    the full utterance for 500 frames (f32, TF32 off); the real-time factor
+    at batch 1 x 500 frames and at a bucketed batch of 16 x 64 frames in
+    f32 with TF32 off and on and in bf16; ``convert_dataset`` over the
+    synthetic test split, cold and warm, with PyTorch's default precision
+    settings (what ``generate_emg`` gets); and the full-width
+    ``EMGDecoder`` (``configs/emg_encoder/conv_transformer.yaml``) on 10 s
+    (shorter than one streaming window: the full-decode fallback) and 30 s
+    of EMG, streaming against the full decode (TF32 off)."""
+    from ste_gan_torch import constants as C
+    from ste_gan_torch.config import Config, load_config
+    from ste_gan_torch.data.dataset import EMGDataset
+    from ste_gan_torch.infer import (EMGDecoder, EMGSynthesizer,
+                                     convert_dataset,
+                                     decoder_receptive_field_frames)
+    from ste_gan_torch.models.emg_encoder import init_emg_encoder
+    from ste_gan_torch.models.generator import init_emg_generator
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(11)
+    report = {}
+
+    # ---- Narrow f32 synthesizer: card against the CPU. ----
+    cfg = narrow_config(Config)
+    sd = init_emg_generator(cfg, torch.float32,
+                            torch.Generator().manual_seed(0)).state_dict()
+    feats = rng.normal(size=(4, 96, 256)).astype(np.float32)
+    sess = rng.integers(0, cfg.data.num_emg_sessions, 4)
+    valid = np.array([96, 80, 41, 7])
+    outs = {dev: EMGSynthesizer.from_config(cfg, sd, device=dev)
+            .synthesize_padded(feats, sess, np.zeros(4), valid).cpu().numpy()
+            for dev in ("cuda", "cpu")}
+    rel = max(float(np.abs(outs["cuda"][r, :16 * v] - outs["cpu"][r, :16 * v])
+                    .max() / np.abs(outs["cpu"][r, :16 * v]).max())
+              for r, v in enumerate(valid))
+    print(f"[infer] narrow f32 synthesize_padded (4 rows, valid "
+          f"{valid.tolist()}"
+          f"), cuda vs cpu: worst relative difference {rel:.3e} (tol "
+          f"{TOL['float32']:g})", flush=True)
+    if not rel <= TOL["float32"]:
+        raise SystemExit("the narrow synthesizer disagrees with the CPU")
+    report["narrow_cuda_vs_cpu_rel"] = rel
+
+    # ---- Full width: bucketing and streaming, f32 with TF32 off. ----
+    cfg = load_config(str(ROOT / "configs" / "ste_gan_base_gantts.yaml"))
+    gen = init_emg_generator(cfg, torch.float32,
+                             torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in gen.parameters())
+    sd = gen.state_dict()
+    exact = EMGSynthesizer.from_config(cfg, sd, bucket=1, device="cuda")
+    bucketed = EMGSynthesizer.from_config(cfg, sd, bucket=64, device="cuda")
+    utt = rng.normal(size=(500, 256)).astype(np.float32)
+    full = exact.synthesize(utt, 1)
+    bucket_diff = float(np.abs(bucketed.synthesize(utt, 1) - full).max())
+    chunks = list(exact.synthesize_streaming(utt, 1, chunk_frames=128))
+    stream = np.concatenate(chunks)
+    stream_diff = float(np.abs(stream - full).max())
+    print(f"[infer] full width ({n_params} params), 500 frames, f32 TF32 "
+          f"off: bucketed (64) vs exact max|diff| {bucket_diff:.3e}; "
+          f"streaming ({len(chunks)} chunks of 128 + 2 x 128 context) vs "
+          f"full max|diff| {stream_diff:.3e} (tol {INFER_TOL:g}); max|full| "
+          f"{np.abs(full).max():.3f}", flush=True)
+    if (full.shape != (8000, 8) or stream.shape != full.shape
+            or not bucket_diff <= INFER_TOL or not stream_diff <= INFER_TOL):
+        raise SystemExit("full-width bucketed or streaming synthesis "
+                         "differs from the exact full utterance")
+    report.update(params=n_params, bucket_max_abs_diff=bucket_diff,
+                  stream_max_abs_diff=stream_diff, tol=INFER_TOL)
+    del exact, bucketed
+
+    # ---- Real-time factor. ----
+    rtf = report["rtf"] = {}
+    for name, dtype, tf32 in (("f32_tf32_off", torch.float32, False),
+                              ("f32_tf32_on", torch.float32, True),
+                              ("bf16", torch.bfloat16, False)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        synth = EMGSynthesizer.from_config(cfg, sd, bucket=64, dtype=dtype,
+                                           device="cuda")
+        for shape, (batch, frames) in (("batch1x500", (1, 500)),
+                                       ("batch16x64", (16, 64))):
+            factor = synth.real_time_factor(num_frames=frames, iters=20,
+                                            batch=batch)
+            flops = generator_flops(
+                synth, torch.zeros((batch, frames, 256), device="cuda"),
+                torch.zeros((batch,), dtype=torch.long, device="cuda"))
+            call_s = factor * batch * frames / 50.0
+            rtf.setdefault(name, {})[shape] = {
+                "rtf": factor, "emg_s_per_s": 1.0 / factor,
+                "ms_per_call": 1e3 * call_s, "gflop_per_call": flops / 1e9,
+                "tflop_per_s": flops / call_s / 1e12}
+            print(f"[infer] real-time factor {name} {shape}: {factor:.6f} = "
+                  f"{1.0 / factor:.1f} s of EMG per s ({1e3 * call_s:.3f} "
+                  f"ms per call, {flops / 1e9:.2f} GFLOP, "
+                  f"{flops / call_s / 1e12:.2f} TFLOP/s) ({card})",
+                  flush=True)
+        del synth
+    torch.backends.cudnn.allow_tf32 = False
+
+    # ---- convert_dataset over the synthetic test split. ----
+    train = EMGDataset(Path(corpus), "train", filter_by_length=False)
+    test = EMGDataset(Path(corpus), "test", filter_by_length=False,
+                      session_id_to_idx=train.session_id_to_idx,
+                      speaking_mode_id_to_idx=train.speaking_mode_id_to_idx)
+    torch.backends.cudnn.allow_tf32 = True
+    synth = EMGSynthesizer.from_config(cfg, sd, bucket=64, device="cuda")
+    passes = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        results = convert_dataset(synth, test, bucket=64)
+        passes.append(time.perf_counter() - t0)
+    torch.backends.cudnn.allow_tf32 = False
+    emg_s = sum(len(r[C.DataType.FAKE_EMG]) for r in results) / 800.0
+    report["convert_dataset"] = {"utterances": len(results), "emg_s": emg_s,
+                                 "cold_s": passes[0], "warm_s": passes[1],
+                                 "warm_emg_s_per_s": emg_s / passes[1]}
+    print(f"[infer] convert_dataset, synthetic test split ({len(results)} "
+          f"utterances, {emg_s:.1f} s of EMG), f32 with PyTorch's default "
+          f"TF32: cold {passes[0]:.3f} s, warm {passes[1]:.3f} s = "
+          f"{emg_s / passes[1]:.1f} s of EMG per s ({card})", flush=True)
+    del synth
+
+    # ---- The full-width decoder. ----
+    ecfg = load_config(emg_enc_cfg=str(ROOT / "configs" / "emg_encoder"
+                                       / "conv_transformer.yaml"))
+    dec = EMGDecoder(init_emg_encoder(ecfg, torch.float32,
+                                      torch.Generator().manual_seed(0)),
+                     device="cuda")
+    ctx = decoder_receptive_field_frames(dec.model)
+    report["decoder"] = {"receptive_field_frames": ctx}
+    for seconds in (10, 30):
+        emg = np.tanh(rng.normal(0, 0.5, (800 * seconds, 8))).astype(
+            np.float32)
+        dec.decode(emg)  # first call at this shape
+        t0 = time.perf_counter()
+        units, ph = dec.decode(emg)
+        full_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        chunks = list(dec.decode_streaming(emg, chunk_frames=100))
+        stream_ms = 1e3 * (time.perf_counter() - t0)
+        fallback = 50 * seconds <= 100 + 2 * ctx
+        rel = max(float(np.abs(np.concatenate([c[i] for c in chunks]) - ref)
+                        .max() / np.abs(ref).max())
+                  for i, ref in enumerate((units, ph)))
+        report["decoder"][f"{seconds}s"] = {
+            "decode_ms": full_ms, "decode_streaming_ms": stream_ms,
+            "chunks": len(chunks), "full_decode_fallback": fallback,
+            "max_rel_diff": rel}
+        print(f"[infer] EMGDecoder full width, {seconds} s of EMG: decode "
+              f"{full_ms:.2f} ms; decode_streaming (chunks of 100 frames, "
+              f"context {ctx}{', full-decode fallback' if fallback else ''})"
+              f" {stream_ms:.2f} ms for {len(chunks)} chunks; streamed vs "
+              f"full max relative difference {rel:.3e} (tol {DECODE_TOL:g})"
+              f" ({card})", flush=True)
+        if not rel <= DECODE_TOL:
+            raise SystemExit("streaming decode differs from the full decode")
+    return report
+
+
+def _non_finite(tree, path=""):
+    """Paths of the non-finite numbers in a report."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _non_finite(v, f"{path}/{k}")]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree)
+                for p in _non_finite(v, f"{path}/{i}")]
+    if isinstance(tree, float) and not np.isfinite(tree):
+        return [path]
+    return []
+
+
+def check_evaluate(torch, dtw, card, gan_run, encoder_runs):
+    """The offline evaluation CLI and ``generate_emg`` on the run
+    directories that the trainer phases wrote, with PyTorch's default
+    precision settings (what the CLIs get): ``evaluate gan --full
+    --realism`` (the frozen encoder: the voiced encoder run's
+    ``best_val_loss_model.pt``), ``evaluate encoder`` voiced and with
+    ``--include_silent`` (the mixed run's encoder and corpus; the DTW
+    launch count is zeroed before each and must move in the silent one
+    only), every reported number finite; then ``generate_emg`` on the GAN
+    run's test split."""
+    import contextlib
+    import io
+
+    from ste_gan_torch import evaluate, generate_emg
+
+    enc_yaml = str(ROOT / "configs" / "emg_encoder" / "conv_transformer.yaml")
+    out = Path(gan_run).parent.parent / "eval"
+    torch.backends.cudnn.allow_tf32 = True
+    runs = {
+        "gan": ["gan", "--run_dir", gan_run, "--emg_enc_ckpt",
+                encoder_runs["voiced"]["checkpoint"], "--full", "--realism"],
+        "encoder_voiced": ["encoder", "--ckpt",
+                           encoder_runs["voiced"]["checkpoint"],
+                           "--data_root", encoder_runs["voiced"]["corpus"],
+                           "--emg_enc_cfg", enc_yaml],
+        "encoder_silent": ["encoder", "--ckpt",
+                           encoder_runs["mixed"]["checkpoint"],
+                           "--data_root", encoder_runs["mixed"]["corpus"],
+                           "--emg_enc_cfg", enc_yaml, "--include_silent"],
+    }
+    report = {}
+    try:
+        for mode, argv in runs.items():
+            dtw.dtw_alignment_batched.launches = 0
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                rep = evaluate.main(argv + ["--out", str(out / f"{mode}.json")])
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            launches = dtw.dtw_alignment_batched.launches
+            bad = _non_finite(rep)
+            summary = ({k: rep["chunked"][k] for k in ("val/speech_unit",
+                                                       "val/multi_td")}
+                       | {"full_phoneme_accuracy":
+                          rep["full_utterance"]["phoneme_accuracy"],
+                          "full_su_l1": rep["full_utterance"]["su_l1"],
+                          "fed": rep["realism"]["fed"],
+                          "lsd_db": rep["realism"]["log_spectral_distance"][
+                              "mean_db"]}
+                       if mode == "gan" else
+                       {k: rep[k] for k in ("num_utterances", "loss",
+                                            "phoneme_accuracy")})
+            report[mode] = {"s": sec, "dtw_launches": launches,
+                            "summary": summary, "report": rep}
+            print(f"[evaluate] {mode}: {sec:.2f} s; dtw_align_kernel "
+                  f"launches {launches}; {json.dumps(summary)}; non-finite "
+                  f"{bad} ({card})", flush=True)
+            if bad:
+                raise SystemExit(f"evaluate {mode}: non-finite numbers {bad}")
+            if (launches > 0) != (mode == "encoder_silent"):
+                raise SystemExit(f"evaluate {mode}: {launches} DTW launches")
+
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            gen = generate_emg.main(["--run_dir", gan_run, "--partition",
+                                     "test", "--out_dir",
+                                     str(out / "emg_synth")])
+        sec = time.perf_counter() - t0
+        files = len(list((out / "emg_synth").glob("*.npy")))
+        report["generate_emg"] = {"s": sec, "files": files, **gen,
+                                  "printed": printed.getvalue()}
+        said = printed.getvalue().strip().replace("\n", "; ")
+        print(f"[evaluate] generate_emg: {sec:.2f} s; {files} files; {said} "
+              f"({card})", flush=True)
+        if files != gen["num_utterances"] or not files:
+            raise SystemExit("generate_emg wrote no file per utterance")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
     return report
 
 
@@ -1108,11 +1412,23 @@ def main() -> int:
         torch, tenc, init_emg_encoder, Config)
     report["encoder_step"] = check_encoder_step(
         torch, tenc, fa, dtw, load_config, init_emg_encoder, card)
-    report["encoder_trainer"] = check_encoder_trainer(
-        torch, {"fused_adamw": fa.fused_adamw_,
-                "dtw": dtw.dtw_alignment_batched}, card)
-    enc_launches = {mode: report["encoder_trainer"][mode]["launches"]
-                    for mode in ("voiced", "mixed")}
+    try:
+        report["encoder_trainer"] = check_encoder_trainer(
+            torch, {"fused_adamw": fa.fused_adamw_,
+                    "dtw": dtw.dtw_alignment_batched}, card)
+        enc_launches = {mode: report["encoder_trainer"][mode]["launches"]
+                        for mode in ("voiced", "mixed")}
+
+        # ---- Synthesis, decoding and offline evaluation on the runs the
+        # trainer phases wrote. ----
+        report["infer"] = check_infer(torch, card,
+                                      report["trainer"]["corpus"])
+        report["evaluate"] = check_evaluate(
+            torch, dtw, card, report["trainer"]["run_dir"],
+            report["encoder_trainer"])
+    finally:
+        for work in ("chip_smoke_trainer", "chip_smoke_encoder"):
+            shutil.rmtree(ROOT / "build" / work, ignore_errors=True)
 
     source = {"grouped_conv_fwd": "ste_gan_torch/csrc/grouped_conv.cu",
               "grouped_conv_dx": "ste_gan_torch/csrc/grouped_conv.cu",
@@ -1152,6 +1468,8 @@ def main() -> int:
         "launches_on": "the mixed encoder trainer run",
         "mixed_step_launches_per_step": report["encoder_step"]["mixed"][
             "launches_per_step"]["dtw"],
+        "evaluate_launches": report["evaluate"]["encoder_silent"][
+            "dtw_launches"],
         **dtw_summary})
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

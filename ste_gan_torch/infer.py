@@ -1,0 +1,334 @@
+"""Inference: speech features -> 800 Hz EMG, and 800 Hz EMG -> 50 Hz units
+and phonemes.
+
+Counterpart of ``ste_gan_tpu/infer.py``:
+
+* :class:`EMGSynthesizer`: batched, bucketed, padded and streaming synthesis
+  through the generator's valid-length masks
+  (``models/generator.py``), which make right padding and chunk windows
+  equal to the conv stack's boundary zero padding;
+* :func:`convert_dataset`: a dataset split converted in length-sorted,
+  bucketed, stacked batches with per-row session, speaking mode and valid
+  length;
+* :class:`EMGDecoder`: the encoder as a decoder, full-length and in
+  fixed-length streaming windows of true samples.
+
+Everything runs under ``torch.inference_mode()`` on ``cuda`` unless the
+caller passes ``device="cpu"``; without a card the constructors raise. The
+JAX package's bucketing keeps its compile cache small; here it keeps the
+semantics (pad, mask, trim) and the number of distinct shapes cuDNN sees.
+On the card "exact" means equal to f32 reduction noise: cuDNN may pick
+another algorithm for another length, and f32 convs run in TF32 unless
+``torch.backends.cudnn.allow_tf32`` is off.
+
+Not ported: the ``mesh=`` scale-out (``ROADMAP.md`` §1 item 5) raises.
+"""
+from __future__ import annotations
+
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ste_gan_torch import constants as C
+from ste_gan_torch.device import resolve_device
+from ste_gan_torch.models.emg_encoder import init_emg_encoder
+from ste_gan_torch.models.generator import (EMGGeneratorGanTTS,
+                                            init_emg_generator)
+
+#: Per-side receptive field of the generator stack in input frames, the
+#: streaming context (the JAX package's value).
+GENERATOR_RECEPTIVE_FIELD_FRAMES = 128
+
+
+def round_up(n: int, multiple: int) -> int:
+    """The least multiple of ``multiple`` that is at least ``n``."""
+    return -(-n // multiple) * multiple
+
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh=: the port runs inference on one device; scale-out "
+            "inference is not ported yet (ROADMAP.md §1 item 5)")
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class EMGSynthesizer:
+    """Speech features -> EMG through ``generator`` (which holds its
+    weights) on ``device``.
+
+    Args:
+        generator: the generator module; moved to ``device``, eval mode.
+        bucket: frame-axis bucket (1: every length as it is).
+        device: ``cuda`` unless given.
+        mesh: not ported; raises when given.
+    """
+
+    def __init__(self, generator: EMGGeneratorGanTTS, bucket: int = 1,
+                 device=None, mesh=None):
+        _no_mesh(mesh)
+        self.device = resolve_device(device)
+        self.generator = generator.to(self.device).eval().requires_grad_(False)
+        self.bucket = max(1, int(bucket))
+        self.upsample = generator.upsample_factor
+
+    @classmethod
+    def from_config(cls, cfg, state_dict, bucket: int = 1,
+                    dtype=torch.float32, device=None,
+                    mesh=None) -> "EMGSynthesizer":
+        """A generator of ``cfg`` computing in ``dtype`` (f32 unless asked
+        otherwise, as the JAX package's) with the weights of
+        ``state_dict`` (reference layout)."""
+        _no_mesh(mesh)
+        dev = resolve_device(device)
+        # A generator of its own keeps the global RNG untouched; the
+        # weights are replaced below.
+        synth = cls(init_emg_generator(cfg, dtype,
+                                       torch.Generator().manual_seed(0)),
+                    bucket, dev)
+        synth.set_params(state_dict)
+        return synth
+
+    def set_params(self, state_dict) -> None:
+        """Copy ``state_dict`` into the generator's own tensors, in place
+        (strict: the keys and shapes must match)."""
+        self.generator.load_state_dict(state_dict, strict=True)
+
+    # ------------------------------------------------------------------
+    def _index(self, values, rows: int) -> torch.Tensor:
+        if values is None:
+            return torch.zeros((rows,), dtype=torch.long, device=self.device)
+        return torch.as_tensor(values, device=self.device).long()
+
+    def _features(self, feats) -> torch.Tensor:
+        if not isinstance(feats, torch.Tensor):
+            feats = torch.from_numpy(np.asarray(feats, np.float32))
+        return feats.to(self.device, torch.float32)
+
+    @torch.inference_mode()
+    def _forward(self, feats, session_idx, mode_idx, num_valid):
+        return self.generator(feats, session_idx, mode_idx,
+                              num_valid_frames=num_valid)
+
+    def synthesize_batch(self, feats, session_idx,
+                         mode_idx=None) -> torch.Tensor:
+        """``[B, T, D]`` features -> ``[B, upsample*T, C]`` EMG on the
+        device. Pads T up to the bucket and trims the output back; the
+        padded frames are masked."""
+        feats = self._features(feats)
+        b, t, _ = feats.shape
+        padded_t = round_up(t, self.bucket)
+        valid = None
+        if padded_t != t:
+            feats = F.pad(feats, (0, 0, 0, padded_t - t))
+            valid = t
+        emg = self._forward(feats, self._index(session_idx, b),
+                            self._index(mode_idx, b), valid)
+        return emg[:, : self.upsample * t]
+
+    def synthesize_padded(self, feats, session_idx, mode_idx,
+                          num_valid) -> torch.Tensor:
+        """A batch with per-row valid lengths: ``[B, Tpad, D]`` + valid
+        ``[B]`` -> ``[B, upsample*Tpad, C]``; row ``b`` is exact up to
+        ``upsample*valid[b]`` (its padded frames are masked)."""
+        feats = self._features(feats)
+        b = feats.shape[0]
+        return self._forward(feats, self._index(session_idx, b),
+                             self._index(mode_idx, b),
+                             self._index(num_valid, b))
+
+    def synthesize(self, feats: np.ndarray, session_idx: int,
+                   mode_idx: int = 0) -> np.ndarray:
+        """One utterance ``[T, D]`` -> ``[upsample*T, C]`` (numpy f32)."""
+        out = self.synthesize_batch(np.asarray(feats)[None], [session_idx],
+                                    [mode_idx])
+        return out[0].float().cpu().numpy()
+
+    # ------------------------------------------------------------------
+    def synthesize_streaming(
+            self, feats: np.ndarray, session_idx: int,
+            chunk_frames: int = 128, mode_idx: int = 0,
+            context_frames: int = GENERATOR_RECEPTIVE_FIELD_FRAMES,
+    ) -> Iterable[np.ndarray]:
+        """Yields EMG chunks of ``upsample*chunk_frames`` samples. Each
+        chunk is generated with ``context_frames`` of feature context on
+        both sides in a window padded to ``chunk + 2*context`` frames and
+        masked, so chunk interiors equal the full-utterance result."""
+        t = len(feats)
+        up = self.upsample
+        target = chunk_frames + 2 * context_frames
+        for start in range(0, t, chunk_frames):
+            stop = min(start + chunk_frames, t)
+            lo = max(0, start - context_frames)
+            hi = min(t, stop + context_frames)
+            window = np.zeros((1, target, feats.shape[1]), np.float32)
+            window[0, : hi - lo] = feats[lo:hi]
+            emg = self._forward(self._features(window),
+                                self._index([session_idx], 1),
+                                self._index([mode_idx], 1),
+                                self._index([hi - lo], 1))[0]
+            yield emg[(start - lo) * up:(stop - lo) * up].float().cpu().numpy()
+
+    # ------------------------------------------------------------------
+    def real_time_factor(self, num_frames: int = 500, iters: int = 20,
+                         batch: int = 1) -> float:
+        """Synthesis wall time over the duration of the EMG it makes (lower
+        is better). Features are 50 Hz for the x16 generator and 100 Hz for
+        the x8 one. One untimed call first; on a card the timed loop ends
+        in ``torch.cuda.synchronize()``."""
+        feats_rate = 50.0 if self.upsample == 16 else 100.0
+        dim = self.generator.speech_input_dim
+        feats = torch.zeros((batch, num_frames, dim), device=self.device)
+        sess = torch.zeros((batch,), dtype=torch.long, device=self.device)
+        self.synthesize_batch(feats, sess)
+        _synchronize(self.device)
+        start = time.perf_counter()
+        for _ in range(iters):
+            self.synthesize_batch(feats, sess)
+        _synchronize(self.device)
+        elapsed = (time.perf_counter() - start) / iters
+        return elapsed / (num_frames / feats_rate * batch)
+
+
+def convert_dataset(synth: EMGSynthesizer, dataset,
+                    feature_key: str = C.DataType.SPEECH_UNITS,
+                    bucket: int = 64, max_batch: int = 16) -> List[Dict]:
+    """Batched multi-session synthesis of a whole split.
+
+    Utterances are sorted by length and grouped by their bucketed frame
+    length; each group runs in stacked batches of at most ``max_batch``
+    rows with per-row session, speaking mode and valid length (the padded
+    frames are masked). Returns, in dataset order, ``{utt_id, fake_emg
+    [upsample*T, C] numpy, session_id}``."""
+    up = synth.upsample
+    items = [dataset[i] for i in range(len(dataset))]
+    order = sorted(range(len(items)),
+                   key=lambda i: len(items[i][feature_key]))
+    results: List[Optional[Dict]] = [None] * len(items)
+
+    groups: Dict[int, List[int]] = {}
+    for i in order:
+        padded = round_up(max(1, len(items[i][feature_key])), bucket)
+        groups.setdefault(padded, []).append(i)
+
+    for padded, indices in groups.items():
+        for start in range(0, len(indices), max_batch):
+            chunk = indices[start:start + max_batch]
+            feats = np.zeros((len(chunk), padded,
+                              items[chunk[0]][feature_key].shape[-1]),
+                             np.float32)
+            valid = np.zeros((len(chunk),), np.int64)
+            sess = np.zeros((len(chunk),), np.int64)
+            mode = np.zeros((len(chunk),), np.int64)
+            for row, i in enumerate(chunk):
+                f = items[i][feature_key]
+                feats[row, : len(f)] = f
+                valid[row] = len(f)
+                sess[row] = int(items[i][C.DataType.SESSION_INDEX])
+                mode[row] = int(items[i][C.DataType.SPEAKING_MODE_INDEX])
+            emg = synth.synthesize_padded(feats, sess, mode, valid)
+            emg = emg.float().cpu().numpy()
+            for row, i in enumerate(chunk):
+                results[i] = {
+                    C.DataType.UTT_ID: items[i][C.DataType.UTT_ID],
+                    C.DataType.FAKE_EMG: emg[row, : up * valid[row]],
+                    C.DataType.SESSION_ID: items[i][C.DataType.SESSION_ID],
+                }
+    return results
+
+
+# ---------------------------------------------------------------------------
+# The decode direction: 800 Hz EMG -> 50 Hz (speech units, phonemes)
+# ---------------------------------------------------------------------------
+
+
+def decoder_receptive_field_frames(model) -> int:
+    """Per-side receptive field of the EMG encoder in 50 Hz frames: each of
+    the L transformer layers, whose attention is hard-windowed at
+    ``relative_positional_distance``, widens a frame's dependency cone by
+    at most ``distance - 1`` frames; the strided conv front end adds under
+    one frame, budgeted as 2."""
+    layers = model.transformer.layers
+    if len(layers) == 0:
+        return 2
+    distance = layers[0].self_attn.relative_positional.max_distance
+    return len(layers) * (distance - 1) + 2
+
+
+class EMGDecoder:
+    """EMG -> (speech units, phoneme logits) through the encoder in eval
+    mode (running statistics, no dropout) on ``device``.
+
+    :meth:`decode` runs one full-length utterance; :meth:`decode_streaming`
+    yields chunks computed in fixed-length windows of true samples
+    (shifted inward at the edges, never zero padded: the encoder has no
+    valid-length mask), which equal the full decode when the context
+    covers :func:`decoder_receptive_field_frames`.
+    """
+
+    def __init__(self, model, device=None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval().requires_grad_(False)
+
+    @classmethod
+    def from_checkpoint(cls, cfg, ckpt_path, device=None) -> "EMGDecoder":
+        """Load the reference-layout state dict that the port's encoder
+        trainer writes (``<enc_run>/best_val_loss_model.pt``), strictly,
+        into an f32 encoder of ``cfg``."""
+        dev = resolve_device(device)
+        model = init_emg_encoder(cfg, torch.float32)
+        model.load_state_dict(torch.load(Path(ckpt_path), map_location="cpu",
+                                         weights_only=True), strict=True)
+        return cls(model, dev)
+
+    @torch.inference_mode()
+    def _forward(self, emg: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        x = torch.from_numpy(np.asarray(emg, np.float32)[None]).to(self.device)
+        units, ph = self.model(x)
+        return units[0].cpu().numpy(), ph[0].cpu().numpy()
+
+    def decode(self, emg: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """``[T, C]`` EMG (T a multiple of 16) -> (``[F, 256]`` units,
+        ``[F, 48]`` phoneme logits), F = T // 16. No padding."""
+        if emg.shape[0] % C.HOPSIZE:
+            raise ValueError(
+                f"EMG length {emg.shape[0]} must be a multiple of "
+                f"{C.HOPSIZE} (one 50 Hz frame of 800 Hz samples)")
+        return self._forward(emg)
+
+    def decode_streaming(self, emg: np.ndarray, chunk_frames: int = 100,
+                         context_frames: Optional[int] = None):
+        """Yields ``([chunk, 256], [chunk, 48])`` pairs covering the
+        utterance in order; concatenated they equal :meth:`decode` to float
+        reduction noise when ``context_frames`` (default:
+        :func:`decoder_receptive_field_frames`) covers the dependency
+        cone. A window nominally ``[start - ctx, stop + ctx)`` is shifted
+        inward at the signal's edges, keeping its length; utterances
+        shorter than one window take one full decode."""
+        hop = C.HOPSIZE
+        if emg.shape[0] % hop:
+            raise ValueError(
+                f"EMG length {emg.shape[0]} must be a multiple of {hop}")
+        total = emg.shape[0] // hop
+        ctx = (decoder_receptive_field_frames(self.model)
+               if context_frames is None else context_frames)
+        target = chunk_frames + 2 * ctx
+        if total <= target:
+            units, ph = self.decode(emg)
+            for start in range(0, total, chunk_frames):
+                stop = min(start + chunk_frames, total)
+                yield units[start:stop], ph[start:stop]
+            return
+        for start in range(0, total, chunk_frames):
+            stop = min(start + chunk_frames, total)
+            lo = min(max(0, start - ctx), total - target)
+            units, ph = self._forward(emg[lo * hop:(lo + target) * hop])
+            yield units[start - lo:stop - lo], ph[start - lo:stop - lo]

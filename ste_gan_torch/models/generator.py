@@ -10,6 +10,13 @@ indices), so :mod:`ste_gan_torch.interop` dicts load with ``strict=True``.
 
 The forward takes and returns channel-last ``[B, T, C]``, like the JAX
 model; inside it runs channel-first.
+
+``num_valid_frames`` / ``valid_start_frames`` (scalars or ``[B]``) zero
+every position outside ``[valid_start, num_valid)`` after the embedding
+concat, after every conv (at each conv's output rate) and before the tanh,
+as the JAX model does, so explicit padding equals the convs' boundary zero
+padding (bucketed and streaming inference). Without them the forward runs
+no mask at all.
 """
 from __future__ import annotations
 
@@ -25,6 +32,32 @@ from ste_gan_torch.ops.conv import WNConv, upsample_nearest
 
 def _same_pad(kernel_size: int, dilation: int = 1) -> int:
     return (kernel_size * dilation - dilation) // 2
+
+
+def valid_mask(length: int, num_valid=None, valid_start=None,
+               device=None) -> Optional[torch.Tensor]:
+    """``[B or 1, 1, length]`` bool: positions in ``[valid_start,
+    num_valid)`` (either bound a scalar or ``[B]``, or None), or None when
+    both are None."""
+    if num_valid is None and valid_start is None:
+        return None
+    pos = torch.arange(length, device=device).view(1, 1, -1)
+    keep = torch.ones((1, 1, length), dtype=torch.bool, device=device)
+    if num_valid is not None:
+        keep = keep & (pos < torch.as_tensor(num_valid, device=device)
+                       .view(-1, 1, 1))
+    if valid_start is not None:
+        keep = keep & (pos >= torch.as_tensor(valid_start, device=device)
+                       .view(-1, 1, 1))
+    return keep
+
+
+def _masked(h: torch.Tensor, keep: Optional[torch.Tensor]) -> torch.Tensor:
+    return h if keep is None else torch.where(keep, h, 0)
+
+
+def _scaled(n, factor: int):
+    return None if n is None else n * factor
 
 
 def gblock_spec(speech_feature_type: str, channels: int = 768):
@@ -62,14 +95,19 @@ class GBlock(nn.Module):
         self.conv2 = nn.ModuleDict({"1": wn(output_dim, 9),
                                     "3": wn(output_dim, 27)})
 
-    def forward(self, x):
+    def forward(self, x, num_valid=None, valid_start=None):
+        """``num_valid`` / ``valid_start`` are at the *input* frame rate;
+        every conv output is masked at the block's output rate."""
         a, b, r = self._names
+        keep = valid_mask(x.shape[2] * self.upsample,
+                          _scaled(num_valid, self.upsample),
+                          _scaled(valid_start, self.upsample), x.device)
         h = upsample_nearest(F.relu(x), self.upsample)
-        h = self.conv1[a](h)
-        h = self.conv1[b](F.relu(h))
-        y = h + self.res1[r](upsample_nearest(x, self.upsample))
-        h2 = self.conv2["1"](F.relu(y))
-        h2 = self.conv2["3"](F.relu(h2))
+        h = _masked(self.conv1[a](h), keep)
+        h = _masked(self.conv1[b](F.relu(h)), keep)
+        y = h + _masked(self.res1[r](upsample_nearest(x, self.upsample)), keep)
+        h2 = _masked(self.conv2["1"](F.relu(y)), keep)
+        h2 = _masked(self.conv2["3"](F.relu(h2)), keep)
         return y + h2
 
 
@@ -88,6 +126,7 @@ class EMGGeneratorGanTTS(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.speech_feature_type = speech_feature_type
+        self.speech_input_dim = speech_input_dim
         self.dtype = dtype
         in_dim = speech_input_dim
         self.session_embeddings = None
@@ -118,7 +157,12 @@ class EMGGeneratorGanTTS(nn.Module):
     def upsample_factor(self) -> int:
         return 16 if self.speech_feature_type == C.DataType.SPEECH_UNITS else 8
 
-    def forward(self, speech_features, session_ids, speaking_mode_ids=None):
+    def forward(self, speech_features, session_ids, speaking_mode_ids=None,
+                num_valid_frames=None, valid_start_frames=None):
+        """``num_valid_frames`` / ``valid_start_frames``: optional scalars
+        or ``[B]`` (int or int tensors) at the input frame rate; frames at
+        index ``>= num_valid_frames`` or ``< valid_start_frames`` are zeroed
+        throughout the stack (see the module docstring)."""
         x = speech_features.to(self.dtype)
         b, t, _ = x.shape
         parts = [x]
@@ -129,9 +173,15 @@ class EMGGeneratorGanTTS(nn.Module):
             emb = self.speaking_mode_embeddings(speaking_mode_ids).to(self.dtype)
             parts.append(emb[:, None, :].expand(b, t, emb.shape[-1]))
         x = torch.cat(parts, dim=-1).transpose(1, 2)
-        for block in self.gblocks:
-            x = block(x)
+        num_valid, start = num_valid_frames, valid_start_frames
+        keep = valid_mask(t, num_valid, start, x.device)
+        x = _masked(self.gblocks[0](_masked(x, keep)), keep)
+        for block in self.gblocks[1:]:
+            x = block(x, num_valid, start)
+            num_valid = _scaled(num_valid, block.upsample)
+            start = _scaled(start, block.upsample)
         x = self.last_conv["1"](F.relu(x))
+        x = _masked(x, valid_mask(x.shape[2], num_valid, start, x.device))
         return torch.tanh(x.float()).transpose(1, 2)
 
 

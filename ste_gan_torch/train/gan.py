@@ -48,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ste_gan_torch import constants as C
 from ste_gan_torch.config import Config, load_config, train_setting
+from ste_gan_torch.data.loader import to_device
 from ste_gan_torch.device import resolve_device
 from ste_gan_torch.losses.encoder_loss import emg_encoder_loss
 from ste_gan_torch.losses.gan_loss import (
@@ -59,15 +60,20 @@ from ste_gan_torch.models.generator import init_emg_generator
 from ste_gan_torch.ops.conv import SNConv, moving_average
 from ste_gan_torch.ops.fused_adamw import (
     AdamWState, adamw_init, fused_adamw_, set_learning_rate)
+from ste_gan_torch.utils.metrics import (
+    mean_error, phoneme_accuracy, phoneme_accuracy_no_silence)
 
 __all__ = ["GANModels", "GANTrainState", "build_models", "init_state",
            "make_optimizer", "set_learning_rate", "epoch_lr",
-           "eval_generator_params", "make_train_step", "make_eval_step",
+           "eval_generator_params", "eval_generator_state_dict",
+           "make_train_step", "make_eval_step", "validate",
            "state_tree", "load_trained_state", "synthetic_batch",
            "main_path"]
 
 COUNT_KEYS = ("num_phones", "num_correct", "num_silence",
               "num_correct_no_silence")
+VAL_KEYS = ("val/waveform", "val/envelope_l1", "val/multi_td",
+            "val/speech_unit", "val/phoneme")
 
 
 @dataclasses.dataclass
@@ -152,6 +158,15 @@ def eval_generator_params(models: GANModels, state: GANTrainState
     finally:
         with torch.no_grad():
             torch._foreach_copy_(params, live)
+
+
+def eval_generator_state_dict(models: GANModels, state: GANTrainState
+                              ) -> Dict[str, torch.Tensor]:
+    """A copy of the generator's state dict with the weights of
+    :func:`eval_generator_params` (the EMA ones when EMA training is on):
+    what synthesis, evaluation and sample plots run."""
+    with eval_generator_params(models, state) as gen:
+        return {k: v.detach().clone() for k, v in gen.state_dict().items()}
 
 
 def _ema_decay(decay: float, step: int) -> np.float32:
@@ -404,6 +419,26 @@ def make_eval_step(cfg: Config, models: GANModels) -> Callable:
         return out
 
     return eval_step
+
+
+def validate(eval_step: Callable, loader, device) -> Dict[str, float]:
+    """The validation metrics over every batch of ``loader`` (one copy to
+    the host at the end): the mean of each ``VAL_KEYS`` error and the
+    phoneme accuracies, in percent, from the summed counters."""
+    per_batch = [eval_step(to_device(batch, device)) for batch in loader]
+    errors = torch.stack([torch.stack([m[k] for k in VAL_KEYS])
+                          for m in per_batch]).double().tolist()
+    counters = dict(zip(COUNT_KEYS, torch.stack([
+        torch.stack([m[f"count/{k}"] for k in COUNT_KEYS])
+        for m in per_batch]).sum(0).tolist()))
+    out = {key: mean_error([row[i] for row in errors])
+           for i, key in enumerate(VAL_KEYS)}
+    out["val/phoneme_accuracy_avg"] = phoneme_accuracy(
+        counters["num_phones"], counters["num_correct"])
+    out["val/phoneme_accuracy_avg_no_sil"] = phoneme_accuracy_no_silence(
+        counters["num_phones"], counters["num_correct_no_silence"],
+        counters["num_silence"])
+    return out
 
 
 def state_tree(models: GANModels, state: GANTrainState) -> Dict[str, Any]:

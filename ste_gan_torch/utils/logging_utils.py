@@ -3,7 +3,9 @@ installed, and stdlib logging.
 
 Counterpart of ``ste_gan_tpu/utils/logging_utils.py``. Scalars go to an
 append-only ``metrics.jsonl`` in the run directory (cheap to parse for tests
-and tooling) and, when tensorboardX imports, to TensorBoard event files.
+and tooling) and, when tensorboardX imports, to TensorBoard event files;
+figures go to TensorBoard when it is on, else to PNG files in the run
+directory.
 """
 from __future__ import annotations
 
@@ -39,6 +41,15 @@ class MetricLogger:
     def scalars(self, values: Dict[str, float], step: int) -> None:
         for tag, value in values.items():
             self.scalar(tag, value, step)
+
+    def figure(self, tag: str, fig, step: int) -> None:
+        """A matplotlib figure: to TensorBoard when it is on, else a PNG
+        in the run directory."""
+        if self._tb is not None:
+            self._tb.add_figure(tag, fig, step)
+        else:
+            safe = tag.replace("/", "_")
+            fig.savefig(self.run_dir / f"{safe}_{step}.png")
 
     def flush(self) -> None:
         self._jsonl.flush()

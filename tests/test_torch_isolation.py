@@ -1,6 +1,7 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, its
-entry points refuse to run on the CPU unless asked to, and its weight
-bridge emits exactly the JAX package's exporter output."""
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+scipy or matplotlib, which the card's machine may lack), its entry points
+refuse to run on the CPU unless asked to, and its weight bridge emits
+exactly the JAX package's exporter output."""
 import subprocess
 import sys
 from pathlib import Path
@@ -29,7 +30,8 @@ def test_port_and_chip_smoke_import_no_jax():
         "'ste_gan_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'ste_gan_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'ste_gan_tpu', 'scipy', "
+        "'matplotlib')]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -45,6 +47,26 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         build_models(TConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main_path()
+
+
+def test_inference_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from ste_gan_torch import evaluate, generate_emg
+    from ste_gan_torch.infer import EMGDecoder, EMGSynthesizer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "missing")
+    calls = [
+        lambda: EMGSynthesizer.from_config(TConfig(), {}),
+        lambda: EMGDecoder.from_checkpoint(TConfig(), missing),
+        lambda: evaluate.main(["gan", "--run_dir", missing,
+                               "--emg_enc_ckpt", missing]),
+        lambda: evaluate.main(["encoder", "--ckpt", missing, "--data_root",
+                               missing]),
+        lambda: generate_emg.main(["--run_dir", missing]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_chip_smoke_fails_without_cuda():
