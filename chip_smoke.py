@@ -77,9 +77,29 @@ Phases, each fatal on failure:
    --realism`` on the GAN run directory of phase 5 with the encoder of
    phase 6, ``evaluate encoder`` voiced and with ``--include_silent`` (its
    ``dtw_align_kernel`` launches counted), every reported number finite,
-   then ``generate_emg`` on the same run directory. The trainer phases'
-   directories are removed after this phase;
-9. the ``kernels`` JSON line, the card line, and the last line
+   then ``generate_emg`` on the same run directory;
+9. ``[export]``: the export CLIs on the same runs, each with ``--verify``
+   (``python -m ste_gan_torch.export_generator``: f32 serving, f32 minimal
+   and int8 serving; ``export_emg_encoder``: f32 and int8), with export
+   seconds, artifact MB and the int8 deviation; the full-width f32 serving
+   artifact against ``EMGSynthesizer.synthesize_padded`` on a padded batch
+   with per-row valid lengths (TF32 off, within ``INFER_TOL``); a narrow
+   artifact traced on the CPU, loaded on the card through the device move
+   and held to the same generator there; one call of the int8 and of the
+   f32 artifact timed, and the int8 program's per-call dequantisation;
+10. ``[serve]``: ``python -m ste_gan_torch.serve_load`` at full width on
+   the GAN run and on the f32 serving artifact (8 clients x 50 requests of
+   64 frames, ``max_batch`` 8, ``max_wait_ms`` 5, bucket 64): client and
+   server p50/p95/p99, batch occupancy, 503s, requests/s and seconds of EMG
+   per second; then one f32 server with the encoder checkpoint behind
+   ``/decode`` (10 s of EMG, held to the encoder), sessions outside the
+   table answered 400 with the card serving on, ``/synthesize_stream`` of
+   a 500-frame utterance against the full synthesis (``INFER_TOL``), and a
+   ``/reload``
+   under the same load that no request may fail, after which the served
+   weights must equal the checkpoint's. The trainer phases' directories
+   are removed after this phase;
+11. the ``kernels`` JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, when no CUDA device is present or when
@@ -88,11 +108,15 @@ run outside a checkout of the repository. Details go to
 """
 from __future__ import annotations
 
+import io
 import json
 import re
 import shutil
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -1218,6 +1242,16 @@ def _non_finite(tree, path=""):
     return []
 
 
+def _quiet(fn, *args):
+    """``fn(*args)`` with its standard output captured: (result, text)."""
+    import contextlib
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        result = fn(*args)
+    return result, printed.getvalue()
+
+
 def check_evaluate(torch, dtw, card, gan_run, encoder_runs):
     """The offline evaluation CLI and ``generate_emg`` on the run
     directories that the trainer phases wrote, with PyTorch's default
@@ -1228,9 +1262,6 @@ def check_evaluate(torch, dtw, card, gan_run, encoder_runs):
     launch count is zeroed before each and must move in the silent one
     only), every reported number finite; then ``generate_emg`` on the GAN
     run's test split."""
-    import contextlib
-    import io
-
     from ste_gan_torch import evaluate, generate_emg
 
     enc_yaml = str(ROOT / "configs" / "emg_encoder" / "conv_transformer.yaml")
@@ -1252,10 +1283,9 @@ def check_evaluate(torch, dtw, card, gan_run, encoder_runs):
     try:
         for mode, argv in runs.items():
             dtw.dtw_alignment_batched.launches = 0
-            printed = io.StringIO()
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(printed):
-                rep = evaluate.main(argv + ["--out", str(out / f"{mode}.json")])
+            rep, _ = _quiet(evaluate.main,
+                            argv + ["--out", str(out / f"{mode}.json")])
             torch.cuda.synchronize()
             sec = time.perf_counter() - t0
             launches = dtw.dtw_alignment_batched.launches
@@ -1282,22 +1312,339 @@ def check_evaluate(torch, dtw, card, gan_run, encoder_runs):
                 raise SystemExit(f"evaluate {mode}: {launches} DTW launches")
 
         t0 = time.perf_counter()
-        printed = io.StringIO()
-        with contextlib.redirect_stdout(printed):
-            gen = generate_emg.main(["--run_dir", gan_run, "--partition",
-                                     "test", "--out_dir",
-                                     str(out / "emg_synth")])
+        gen, printed = _quiet(generate_emg.main, [
+            "--run_dir", gan_run, "--partition", "test", "--out_dir",
+            str(out / "emg_synth")])
         sec = time.perf_counter() - t0
         files = len(list((out / "emg_synth").glob("*.npy")))
         report["generate_emg"] = {"s": sec, "files": files, **gen,
-                                  "printed": printed.getvalue()}
-        said = printed.getvalue().strip().replace("\n", "; ")
+                                  "printed": printed}
+        said = printed.strip().replace("\n", "; ")
         print(f"[evaluate] generate_emg: {sec:.2f} s; {files} files; {said} "
               f"({card})", flush=True)
         if files != gen["num_utterances"] or not files:
             raise SystemExit("generate_emg wrote no file per utterance")
     finally:
         torch.backends.cudnn.allow_tf32 = False
+    return report
+
+
+def check_export(torch, card, gan_run, encoder_runs):
+    """Deployment artifacts (``ste_gan_torch.export``, ``quant`` and the
+    two export CLIs) from the runs the trainer phases wrote: the generator
+    CLI on the GAN run (f32 serving, f32 minimal, int8 serving) and the
+    encoder CLI on the voiced encoder (f32, int8), each with ``--verify``;
+    the full-width f32 serving artifact against
+    ``EMGSynthesizer.synthesize_padded`` on a padded batch with per-row
+    valid lengths (TF32 off, ``INFER_TOL``); a narrow artifact exported on
+    the CPU, loaded on the card through the device move and held to the
+    same generator on the card; one call of the int8 and the f32 serving
+    artifact timed, and the dequantisation the int8 program runs per call
+    timed alone. Returns the report and the artifacts' paths."""
+    from ste_gan_torch import export_emg_encoder, export_generator
+    from ste_gan_torch.config import Config
+    from ste_gan_torch.export import (ExportedSynthesizer, generator_meta,
+                                      save_exported)
+    from ste_gan_torch.export import export_generator as export_program
+    from ste_gan_torch.infer import EMGSynthesizer
+    from ste_gan_torch.models.generator import init_emg_generator
+    from ste_gan_torch.quant import dequantize_state_dict, quantize_state_dict
+    from ste_gan_torch.serve import load_served_generator
+
+    out = Path(gan_run).parent.parent / "export"
+    enc_ckpt = encoder_runs["voiced"]["checkpoint"]
+    runs = {
+        "generator_f32_serving": (export_generator, [
+            "--run_dir", gan_run, "--serving", "--verify"]),
+        "generator_f32_minimal": (export_generator, [
+            "--run_dir", gan_run, "--verify"]),
+        "generator_int8_serving": (export_generator, [
+            "--run_dir", gan_run, "--serving", "--quantize", "int8",
+            "--verify"]),
+        "encoder_f32": (export_emg_encoder, ["--ckpt", enc_ckpt, "--verify"]),
+        "encoder_int8": (export_emg_encoder, [
+            "--ckpt", enc_ckpt, "--quantize", "int8", "--verify"]),
+    }
+    report, paths = {}, {}
+    for name, (cli, argv) in runs.items():
+        paths[name] = out / f"{name}.pt2"
+        t0 = time.perf_counter()
+        rep, printed = _quiet(cli.main, argv + ["--out", str(paths[name])])
+        torch.cuda.synchronize()
+        rep.update(total_s=time.perf_counter() - t0, printed=printed)
+        report[name] = rep
+        extra = {k: v for k, v in rep.items() if k.startswith("int8_")}
+        print(f"[export] {name}: export {rep['export_s']:.2f} s (CLI "
+              f"{rep['total_s']:.2f} s), {rep['bytes'] / 1e6:.2f} MB, "
+              f"verify max|artifact - framework| "
+              f"{rep['verify']['max_abs_diff']:.3e} (tol "
+              f"{rep['verify']['tol']:g}){' ' + json.dumps(extra) if extra else ''}"
+              f" ({card})", flush=True)
+    for kind in ("generator", "encoder"):
+        f32 = report[f"{kind}_f32" + ("_serving" if kind == "generator"
+                                      else "")]["bytes"]
+        int8 = report[f"{kind}_int8" + ("_serving" if kind == "generator"
+                                        else "")]["bytes"]
+        report[f"{kind}_int8_over_f32_bytes"] = int8 / f32
+        print(f"[export] {kind} artifact: f32 {f32 / 1e6:.2f} MB, int8 "
+              f"{int8 / 1e6:.2f} MB ({int8 / f32:.3f}x)", flush=True)
+
+    # ---- The full-width f32 serving artifact against the synthesizer. ----
+    cfg, _, state_dict = load_served_generator(gan_run, "best", "cuda")
+    ref = EMGSynthesizer.from_config(cfg, state_dict, dtype=torch.float32,
+                                     device="cuda")
+    art = ExportedSynthesizer(paths["generator_f32_serving"])
+    rng = np.random.default_rng(13)
+    valid = np.array([128, 100, 37, 5])
+    feats = rng.normal(size=(4, 128, 256)).astype(np.float32)
+    sess = rng.integers(0, cfg.data.num_emg_sessions, 4)
+    mode = np.zeros(4, np.int64)
+    got = art.synthesize_padded(feats, sess, mode, valid).cpu().numpy()
+    want = ref.synthesize_padded(feats, sess, mode, valid).cpu().numpy()
+    diff = max(float(np.abs(got[r, :16 * v] - want[r, :16 * v]).max())
+               for r, v in enumerate(valid))
+    print(f"[export] full-width f32 serving artifact vs "
+          f"EMGSynthesizer.synthesize_padded (4 rows, valid "
+          f"{valid.tolist()}, TF32 off): max|diff| {diff:.3e} (tol "
+          f"{INFER_TOL:g})", flush=True)
+    if not diff <= INFER_TOL:
+        raise SystemExit("the f32 serving artifact differs from the "
+                         "synthesizer")
+    report["serving_vs_synthesizer_max_abs_diff"] = diff
+
+    # ---- A narrow artifact traced on the CPU, run on the card. ----
+    ncfg = narrow_config(Config)
+    gen = init_emg_generator(ncfg, torch.float32,
+                             torch.Generator().manual_seed(0)).eval()
+    narrow = out / "narrow-cpu-serving.pt2"
+    save_exported(export_program(gen, 256, serving=True), narrow,
+                  generator_meta(gen, 256, True))
+    traced = json.loads(Path(str(narrow) + ".meta.json").read_text())["device"]
+    moved = ExportedSynthesizer(narrow)
+    on = {str(v.device) for v in moved._program.state_dict().values()}
+    if on != {"cuda:0"}:
+        raise SystemExit(f"the CPU-traced artifact lies on {on}")
+    nfeats = rng.normal(size=(3, 40, 256)).astype(np.float32)
+    nvalid = np.array([40, 23, 6])
+    nsess, nmode = np.array([0, 1, 2]), np.zeros(3, np.int64)
+    got = moved.synthesize_padded(nfeats, nsess, nmode, nvalid).cpu().numpy()
+    want = EMGSynthesizer.from_config(ncfg, gen.state_dict(), device="cuda") \
+        .synthesize_padded(nfeats, nsess, nmode, nvalid).cpu().numpy()
+    rel = max(float(np.abs(got[r, :16 * v] - want[r, :16 * v]).max()
+                    / np.abs(want[r, :16 * v]).max())
+              for r, v in enumerate(nvalid))
+    print(f"[export] narrow artifact traced on {traced}, loaded on "
+          f"{moved.device} through move_to_device_pass: worst relative "
+          f"difference from the generator on the card {rel:.3e} (tol "
+          f"{TOL['float32']:g})", flush=True)
+    if not rel <= TOL["float32"]:
+        raise SystemExit("the moved artifact disagrees with the card")
+    report["narrow_moved"] = {"traced_on": traced, "max_rel": rel}
+
+    # ---- One call of the int8 and the f32 serving artifact. ----
+    int8 = ExportedSynthesizer(paths["generator_int8_serving"])
+    bfeats = torch.from_numpy(rng.normal(size=(8, 64, 256)).astype(
+        np.float32)).cuda()
+    ids = torch.zeros((8,), dtype=torch.long, device="cuda")
+    bvalid = torch.full((8,), 64, device="cuda")
+    calls = {name: cuda_time(lambda s=s: s.synthesize_padded(
+        bfeats, ids, ids, bvalid), reps=20, warmup=3)
+        for name, s in (("f32", art), ("int8", int8), ("synthesizer", ref))}
+    qsd = quantize_state_dict(state_dict)
+    calls["dequantize_only"] = cuda_time(lambda: dequantize_state_dict(qsd),
+                                         reps=20, warmup=3)
+    report["call_ms_8x64"] = calls
+    print(f"[export] one serving call, 8 x 64 frames, f32 TF32 off: f32 "
+          f"artifact {calls['f32']:.3f} ms, int8 artifact "
+          f"{calls['int8']:.3f} ms (+{calls['int8'] - calls['f32']:.3f} ms: "
+          f"its per-call dequantisation; the dequantisation alone "
+          f"{calls['dequantize_only']:.3f} ms), EMGSynthesizer "
+          f"{calls['synthesizer']:.3f} ms ({card})", flush=True)
+    return report, paths
+
+
+def check_serve(torch, card, gan_run, encoder_runs, artifact):
+    """The HTTP service (``ste_gan_torch.serve``) at full width:
+    ``serve_load`` (8 clients x 50 requests of 64 frames, ``max_batch`` 8,
+    ``max_wait_ms`` 5, bucket 64) on the GAN run's best checkpoint and on
+    the f32 serving artifact; then one f32 server (TF32 off) from the run's
+    ``checkpoint-00000003`` with the voiced encoder's checkpoint behind
+    ``/decode``: ten decodes of 10 s of EMG, one ``/synthesize_stream`` of
+    a 500-frame utterance against the full synthesis, and a ``/reload``
+    to ``checkpoint-final`` under the same load, which no request may
+    fail, after which the served weights must equal the checkpoint's."""
+    from ste_gan_torch import serve_load
+    from ste_gan_torch.config import load_config
+    from ste_gan_torch.infer import EMGDecoder
+    from ste_gan_torch.serve import (EMGDecoderService, SynthesisService,
+                                     load_served_generator, make_http_server)
+
+    load_args = ["--clients", "8", "--requests", "50", "--frames", "64",
+                 "--max_batch", "8", "--max_wait_ms", "5"]
+    report = {}
+    for name, source in (("run_dir", ["--run_dir", gan_run, "--tag", "best"]),
+                         ("artifact", ["--artifact", str(artifact)])):
+        rep, _ = _quiet(serve_load.main, source + load_args + [
+            "--out", str(ROOT / "chiprun_out" / f"serve_load_{name}.json")])
+        report[name] = rep
+        lat, st = rep["client_latency_ms"], rep["server_stats"]
+        print(f"[serve] serve_load from the {name} (8 clients x 50 x 64 "
+              f"frames, max_batch 8, 5 ms): client p50/p95/p99 "
+              f"{lat['p50']:.2f}/{lat['p95']:.2f}/{lat['p99']:.2f} ms, "
+              f"server p50/p95/p99 {st['latency_ms_p50']:.2f}/"
+              f"{st['latency_ms_p95']:.2f}/{st['latency_ms_p99']:.2f} ms, "
+              f"batch occupancy {st['batch_occupancy_mean']:.2f} (max "
+              f"{st['batch_occupancy_max']}), 503s {rep['rejected_503']}, "
+              f"{rep['requests_per_s']:.1f} requests/s, "
+              f"{rep['emg_seconds_per_s']:.1f} s of EMG per s ({card})",
+              flush=True)
+        if rep["errors"] or rep["completed"] != 400:
+            raise SystemExit(f"serve_load {name}: {rep['completed']} of 400 "
+                             f"answered; errors {rep['errors'][:3]}")
+
+    cfg = load_config(config=Path(gan_run) / "config.yaml")
+    # f32 (TF32 off), so that the stream is held to INFER_TOL.
+    service = SynthesisService.from_run_dir(gan_run, tag="checkpoint-00000003",
+                                            max_batch=8, max_wait_ms=5.0,
+                                            bucket=64, dtype=torch.float32)
+    decoder = EMGDecoderService.from_checkpoint(
+        cfg, encoder_runs["voiced"]["checkpoint"], bucket=64)
+    service.warmup(num_frames=64, batch_sizes=(1, 8))
+    decoder.warmup()
+    server = make_http_server(service, port=0, decoder=decoder)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    rng = np.random.default_rng(17)
+    try:
+        # ---- /decode: 10 s of EMG (500 frames, padded to 512). ----
+        emg = np.tanh(rng.normal(0, 0.5, (8000, 8))).astype(np.float32)
+        body = serve_load.npz_payload(emg=emg)
+        decode_ms = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            out = np.load(io.BytesIO(serve_load.post(port, "/decode", body)))
+            decode_ms.append(1e3 * (time.perf_counter() - t0))
+        padded = np.zeros((512 * 16, 8), np.float32)
+        padded[:8000] = emg
+        want = EMGDecoder.from_checkpoint(
+            cfg, encoder_runs["voiced"]["checkpoint"], device="cuda"
+        ).decode(padded)
+        rel = max(float(np.abs(out[k] - w[:500]).max() / np.abs(w[:500]).max())
+                  for k, w in zip(("units", "phoneme_logits"), want))
+        report["decode"] = {"ms": decode_ms,
+                            "p50_ms": float(np.percentile(decode_ms, 50)),
+                            "max_rel_vs_direct": rel}
+        print(f"[serve] /decode of 10 s of EMG from the encoder checkpoint "
+              f"(bucket 64, 512 frames): p50 "
+              f"{report['decode']['p50_ms']:.2f} ms over 10 requests; vs "
+              f"the encoder on the same padded input max relative "
+              f"difference {rel:.3e} (tol {DECODE_TOL:g}) ({card})",
+              flush=True)
+        if not rel <= DECODE_TOL:
+            raise SystemExit("/decode differs from the encoder")
+
+        # ---- Sessions outside the table: 400, and the card serves on. ----
+        feats = rng.normal(size=(64, 256)).astype(np.float32)
+        codes = []
+        for path in ("/synthesize", "/synthesize_stream"):
+            for session in (cfg.data.num_emg_sessions, -1):
+                try:
+                    serve_load.post(port, path, serve_load.npz_payload(
+                        feats=feats, session=session))
+                    codes.append(200)
+                except urllib.error.HTTPError as exc:
+                    codes.append(exc.code)
+        after = np.load(io.BytesIO(serve_load.post(
+            port, "/synthesize", serve_load.npz_payload(feats=feats,
+                                                         session=0))))
+        report["out_of_range"] = {"codes": codes,
+                                  "then_served": list(after.shape)}
+        print(f"[serve] sessions {cfg.data.num_emg_sessions} and -1 on "
+              f"/synthesize and /synthesize_stream: HTTP {codes}; the next "
+              f"request served {list(after.shape)} ({card})", flush=True)
+        if codes != [400] * 4 or not np.isfinite(after).all():
+            raise SystemExit("an out-of-range session was not refused")
+
+        # ---- /synthesize_stream of 500 frames against the full one. ----
+        feats = rng.normal(size=(500, 256)).astype(np.float32)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/synthesize_stream",
+            data=serve_load.npz_payload(feats=feats, session=0),
+            method="POST")
+        chunks = []
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            channels = int(resp.headers["X-Emg-Channels"])
+            while True:
+                n = int.from_bytes(resp.read(8), "big")
+                if n == 0:
+                    break
+                chunks.append(np.frombuffer(resp.read(n), np.float32)
+                              .reshape(-1, channels))
+        stream_s = time.perf_counter() - t0
+        stream = np.concatenate(chunks)
+        full = service.synthesizer.synthesize(feats, 0)
+        diff = float(np.abs(stream - full).max())
+        report["stream"] = {"chunks": len(chunks), "s": stream_s,
+                            "max_abs_diff": diff, "tol": INFER_TOL}
+        print(f"[serve] /synthesize_stream, 500 frames in {len(chunks)} "
+              f"chunks of 64, {stream_s:.3f} s; vs the full synthesis (f32, "
+              f"TF32 off) max|diff| {diff:.3e} (tol {INFER_TOL:g}) ({card})",
+              flush=True)
+        if stream.shape != full.shape or not diff <= INFER_TOL:
+            raise SystemExit("the stream differs from the full synthesis")
+
+        # ---- /reload under load. ----
+        load = {}
+        payloads = [serve_load.npz_payload(
+            feats=rng.normal(size=(64, 256)).astype(np.float32), session=0)
+            for _ in range(8)]
+        driver = threading.Thread(target=lambda: load.update(
+            serve_load.drive(port, payloads, 50)))
+        driver.start()
+        time.sleep(0.3)
+        t0 = time.perf_counter()
+        info = json.loads(serve_load.post(port, "/reload", json.dumps(
+            {"tag": "checkpoint-final"}).encode()))
+        reload_s = time.perf_counter() - t0
+        driver.join(timeout=600)
+        served = service.synthesizer.generator.state_dict()
+        _, _, final = load_served_generator(gan_run, "checkpoint-final",
+                                            "cuda")
+        _, _, first = load_served_generator(gan_run, "checkpoint-00000003",
+                                            "cuda")
+        equal = all(torch.equal(served[k], final[k]) for k in final)
+        moved_weights = any(not torch.equal(first[k], final[k])
+                            for k in final)
+        lat = serve_load.percentiles(load.get("latencies_ms", []))
+        report["reload"] = {"s": reload_s, "info": info,
+                            "completed": len(load.get("latencies_ms", [])),
+                            "rejected_503": load.get("rejected_503"),
+                            "errors": load.get("errors"),
+                            "client_latency_ms": lat,
+                            "weights_equal_checkpoint": equal,
+                            "checkpoints_differ": moved_weights}
+        print(f"[serve] /reload checkpoint-00000003 -> checkpoint-final "
+              f"under 8 x 50 requests: reload {reload_s:.2f} s; "
+              f"{report['reload']['completed']} of 400 answered, 503s "
+              f"{load.get('rejected_503')}, errors {load.get('errors')}; "
+              f"client p50/p99 {lat.get('p50', 0):.2f}/"
+              f"{lat.get('p99', 0):.2f} ms; served weights equal the "
+              f"checkpoint's {equal} (the two checkpoints differ: "
+              f"{moved_weights}) ({card})", flush=True)
+        if (driver.is_alive() or load.get("errors") or load.get("rejected_503")
+                or report["reload"]["completed"] != 400 or not equal
+                or not moved_weights or info.get("reloads") != 1):
+            raise SystemExit("a request failed during /reload, or the served "
+                             "weights are not the checkpoint's")
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats",
+                                    timeout=60) as resp:
+            report["stats"] = json.loads(resp.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
     return report
 
 
@@ -1426,6 +1773,15 @@ def main() -> int:
         report["evaluate"] = check_evaluate(
             torch, dtw, card, report["trainer"]["run_dir"],
             report["encoder_trainer"])
+
+        # ---- Deployment: artifacts, int8 and the HTTP service, on the
+        # same runs. ----
+        report["export"], artifacts = check_export(
+            torch, card, report["trainer"]["run_dir"],
+            report["encoder_trainer"])
+        report["serve"] = check_serve(
+            torch, card, report["trainer"]["run_dir"],
+            report["encoder_trainer"], artifacts["generator_f32_serving"])
     finally:
         for work in ("chip_smoke_trainer", "chip_smoke_encoder"):
             shutil.rmtree(ROOT / "build" / work, ignore_errors=True)

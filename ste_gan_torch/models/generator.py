@@ -127,6 +127,7 @@ class EMGGeneratorGanTTS(nn.Module):
         super().__init__()
         self.speech_feature_type = speech_feature_type
         self.speech_input_dim = speech_input_dim
+        self.num_emg_channels = num_emg_channels
         self.dtype = dtype
         in_dim = speech_input_dim
         self.session_embeddings = None
@@ -156,6 +157,19 @@ class EMGGeneratorGanTTS(nn.Module):
     @property
     def upsample_factor(self) -> int:
         return 16 if self.speech_feature_type == C.DataType.SPEECH_UNITS else 8
+
+    @property
+    def num_sessions(self) -> Optional[int]:
+        """Rows of the session table (indices ``0..n-1``); None without
+        one, when the session index is ignored."""
+        table = self.session_embeddings
+        return None if table is None else table.num_embeddings
+
+    @property
+    def num_speaking_modes(self) -> Optional[int]:
+        """Rows of the speaking-mode table; None without one."""
+        table = self.speaking_mode_embeddings
+        return None if table is None else table.num_embeddings
 
     def forward(self, speech_features, session_ids, speaking_mode_ids=None,
                 num_valid_frames=None, valid_start_frames=None):

@@ -69,6 +69,37 @@ def test_inference_entry_points_raise_without_cuda(monkeypatch, tmp_path):
             call()
 
 
+def test_deployment_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """Export, artifact loading and serving run on the card unless asked
+    otherwise; an artifact with its meta file still refuses the CPU."""
+    from ste_gan_torch import (export, export_emg_encoder, export_generator,
+                               serve, serve_load)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "missing")
+    artifact = tmp_path / "generator-serving.pt2"
+    artifact.write_bytes(b"")
+    (tmp_path / "generator-serving.pt2.meta.json").write_text(
+        '{"serving": true, "device": "cuda:0", "feature_dim": 256, '
+        '"upsample": 16, "num_emg_channels": 8, "min_frames": 101, '
+        '"num_sessions": 8, "num_speaking_modes": null}')
+    calls = [
+        lambda: serve.main(["--run_dir", missing]),
+        lambda: serve.main(["--artifact", str(artifact)]),
+        lambda: serve.SynthesisService.from_run_dir(missing),
+        lambda: serve.SynthesisService.from_artifact(artifact),
+        lambda: serve.EMGDecoderService(artifact),
+        lambda: serve_load.main(["--run_dir", missing]),
+        lambda: export.ExportedSynthesizer(artifact),
+        lambda: export.load_exported(artifact),
+        lambda: export_generator.main(["--run_dir", missing]),
+        lambda: export_emg_encoder.main(["--ckpt", missing]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
 def test_chip_smoke_fails_without_cuda():
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
                           capture_output=True, text=True, timeout=120,
