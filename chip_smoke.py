@@ -16,8 +16,9 @@ Phases, each fatal on failure:
    2B = 64 batch, in f32 (TF32 off) and bf16; forward, dX and dW also at
    the edge geometries of ``tests/test_torch_grouped_conv.py`` (strides
    1/2/4, groups 1-16, down to 2 input and 4 output channels per group, 128
-   output channels per group, odd lengths) and one with K < stride, in both
-   types; two bf16 dW calls must agree bit for bit; AdamW over
+   output channels per group, odd lengths), one with K < stride and the
+   full scale discriminators' five grouped layers (K 41, strides 1-4,
+   groups 4-16, up to 1024 channels) at three scales, in both types; two bf16 dW calls must agree bit for bit; AdamW over
    generator- and discriminator-size parameter sets for 3 steps. Kernel,
    plain and library times come from CUDA events; the bound is the larger of
    bytes over 3.35 TB/s and operations over the peak rate for the operand
@@ -99,7 +100,29 @@ Phases, each fatal on failure:
    under the same load that no request may fail, after which the served
    weights must equal the checkpoint's. The trainer phases' directories
    are removed after this phase;
-11. the ``kernels`` JSON line, the card line, and the last line
+11. ``[etl]``: ``filtfilt_kernel`` (``ste_gan_torch/csrc/iir.cu``) against
+   its plain version on the card at the prep's shapes (8 rows x 15,000
+   samples through the eight-stage notch-plus-drift cascade, 8 x 4,000
+   through the Hilbert envelope's 20 Hz low-pass, 512 rows of 1,000-4,000
+   samples), error relative to ``max|x|`` within 1e-10, kernel, plain and
+   bound ms (the chain of dependent f64 operations, bytes and operations);
+   the MFCC frontend and ``get_emg_features`` on the card against the CPU;
+12. ``[prep]``: ``python -m ste_gan_torch.clean_audio`` then
+   ``python -m ste_gan_torch.prep_data`` on the card over a synthetic raw
+   Gaddy & Klein tree (three sessions, 48 utterances of 3-8 s, 8-channel
+   1 kHz EMG, 16 kHz audio, TextGrids) with a HuBERT stand-in on the card:
+   seconds of EMG per second, ms per utterance, ``filtfilt_kernel``
+   launches (zeroed just before the prep, above 0 after), the invariants,
+   the split routing and a load with the port's dataset; then two voiced
+   utterances prepared on the card and on the CPU agree;
+13. ``[moe]``: the mixture-of-experts encoder
+   (``configs/emg_encoder/conv_transformer_moe.yaml``): narrow voiced and
+   mixed steps on the card against the CPU (rtol 1e-3); the full-width step
+   on the 128,000-sample budget, voiced and mixed, with its peak memory held
+   far under what ``[S, E, C]`` one-hot tensors would add; the encoder CLI
+   with the MoE config, voiced and mixed, one epoch each; its checkpoint
+   loaded strictly into ``EMGDecoder`` and into the GAN trainer (3 steps);
+14. the ``kernels`` JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, when no CUDA device is present or when
@@ -123,7 +146,12 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+#: Dense peaks of one H100 SXM (NVIDIA's data sheet); float64 is the CUDA
+#: cores' rate, which the filter kernel uses.
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "float64": 34e12}
+#: Latency of one dependent f64 add or multiply, in SM cycles (assumed; not
+#: measured here), for the filter kernel's dependency-chain bound.
+FP64_DEP_CYCLES = 8
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}  # max |kernel - plain| / max |plain|
 #: Max |difference| of the full-width f32 synthesis (TF32 off) between
 #: bucketed and exact, and between streaming interiors and the full
@@ -145,6 +173,14 @@ EDGE_GEOMETRIES = ((2, 64, 16, 32, 15, 1, 7, 1), (2, 64, 32, 64, 9, 2, 4, 4),
                    (2, 64, 32, 64, 9, 2, 4, 16), (2, 64, 32, 64, 9, 4, 4, 8),
                    (1, 50, 16, 16, 5, 2, 2, 4), (2, 64, 32, 256, 5, 1, 2, 2),
                    (2, 33, 8, 16, 3, 4, 1, 2))
+#: The full scale discriminators' grouped layers (``FULL_SCALE_SPEC`` of
+#: ste_gan_torch/models/discriminator.py, K 41) at 2B = 64, scale 0 (B, T,
+#: Cin, Cout, K, stride, pad, groups); scales 1 and 2 halve T.
+FULL_SCALE_GEOMETRIES = ((64, 2048, 128, 128, 41, 2, 20, 4),
+                         (64, 1024, 128, 256, 41, 2, 20, 16),
+                         (64, 512, 256, 512, 41, 4, 20, 16),
+                         (64, 128, 512, 1024, 41, 4, 20, 16),
+                         (64, 32, 1024, 1024, 41, 1, 20, 16))
 
 
 def cuda_time(fn, reps: int = 5, warmup: int = 2) -> float:
@@ -280,11 +316,15 @@ def check_grouped_conv(torch, gc, F):
 
 def check_conv_edges(torch, gc):
     """Forward, dX and dW against their plain versions at the edge
-    geometries, f32 and bf16, same tolerances; then two bf16 dW calls at
+    geometries and at the full scale discriminators' grouped layers (three
+    scales), f32 and bf16, same tolerances; then two bf16 dW calls at
     layer 1, scale 0 must be bitwise equal."""
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for b, t, cin, cout, k, s, pad, g in EDGE_GEOMETRIES:
+    full = [(b, t >> scale, *rest) for b, t, *rest in FULL_SCALE_GEOMETRIES
+            for scale in range(3)]
+    for b, t, cin, cout, k, s, pad, g in EDGE_GEOMETRIES + tuple(full):
+        label = "full-disc" if (b, t, cin, cout, k, s, pad, g) in full else "edge"
         t_out = gc.out_length(t, k, s, pad, pad)
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
@@ -308,8 +348,9 @@ def check_conv_edges(torch, gc):
                 row = {"kernel": name, "geometry": [b, t, cin, cout, k, s, pad, g],
                        "dtype": dname, "max_abs_err": err, "max_rel_err": rel,
                        "tol": TOL[dname], "ok": rel <= TOL[dname]}
+                row["set"] = label
                 rows.append(row)
-                print(f"[edge] {name} {row['geometry']} {dname}: rel "
+                print(f"[{label}] {name} {row['geometry']} {dname}: rel "
                       f"{rel:.3e} (tol {TOL[dname]:g})", flush=True)
                 if not row["ok"]:
                     raise SystemExit(f"{name} disagrees with its plain "
@@ -1648,6 +1689,529 @@ def check_serve(torch, card, gan_run, encoder_runs, artifact):
     return report
 
 
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (``nvidia-smi``), for the filter
+    kernel's dependency-chain bound."""
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return 1e6 * float(out.stdout.strip().splitlines()[0])
+
+
+def filtfilt_bound(iir, lengths, stages, clock_hz: float):
+    """The least time of one ``filtfilt_cascade`` call, from its inputs:
+
+    * the chain: every sample of a pass waits for the previous one's state,
+      three dependent f64 operations each (``y = z0 + b0 x``, ``y a1``,
+      ``z1' - y a1``), over ``n + 2p`` samples, two passes, every stage, for
+      the longest row; at ``FP64_DEP_CYCLES`` cycles per dependent operation
+      (assumed) and the card's maximum SM clock;
+    * bytes: each row read once and written once (8 bytes a sample);
+    * operations: ``2 + 4 (N - 1)`` f64 operations per sample and pass of
+      an ``N``-tap stage, over every row, at the f64 peak.
+
+    Returns (bound ms, "bytes" or "operations", the chain's steps, the three
+    times in ms)."""
+    _, taps, pads = iir.prepare_stages(stages)
+    steps = max(sum(2 * (n + 2 * int(p)) for p in pads) for n in lengths)
+    chain_ms = 1e3 * 3 * steps * FP64_DEP_CYCLES / clock_hz
+    bytes_ms = 1e3 * 16.0 * sum(lengths) / HBM_BYTES_PER_S
+    ops = sum(2 * (n + 2 * int(p)) * (2 + 4 * (int(t) - 1))
+              for n in lengths for t, p in zip(taps, pads))
+    ops_ms = 1e3 * ops / PEAK_OPS_PER_S["float64"]
+    best = max(chain_ms, bytes_ms, ops_ms)
+    return best, ("bytes" if best == bytes_ms else "operations"), steps, {
+        "chain_ms": chain_ms, "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+
+
+def emg_chain_stages():
+    """The prep's notch-plus-drift cascade at 1 kHz (eight stages)."""
+    from ste_gan_torch.etl import emg_dsp
+
+    return emg_dsp.notch_designs(60, 1000) + [emg_dsp.drift_design(1000)]
+
+
+def check_etl(torch, iir, card):
+    """``filtfilt_kernel`` against its plain version on the card at the
+    prep's shapes: 8 rows of 15,000 samples (a 5 s utterance at 1 kHz with
+    its two neighbours) through the eight-stage notch-plus-drift cascade,
+    8 rows of 4,000 (5 s at 800 Hz) through the Hilbert envelope's 20 Hz
+    low-pass, and 512 rows of mixed lengths (1,000-4,000) through the
+    cascade. Error relative to ``max|x|``, tolerance 1e-10 (fatal); kernel
+    ms (CUDA events), plain ms (one call), bound ms. Then the MFCC frontend
+    and ``get_emg_features`` on the card against the port's CPU run."""
+    from ste_gan_torch.etl import audio_dsp, emg_dsp, filters
+
+    clock = sm_clock_hz()
+    rng = np.random.default_rng(11)
+    lowpass = [filters.butter(4, 20, fs=800, btype="low")]
+    cases = [("emg chain, 8 x 15000", [15_000] * 8, emg_chain_stages()),
+             ("hilbert low-pass, 8 x 4000", [4_000] * 8, lowpass),
+             ("batch of 512 mixed lengths",
+              [int(n) for n in rng.integers(1_000, 4_001, 512)],
+              emg_chain_stages())]
+    rows, summary = [], None
+    for name, lengths, stages in cases:
+        width = max(lengths)
+        x = (rng.normal(0.0, 20.0, (len(lengths), width)) + 40.0
+             + 200.0 * np.sin(np.arange(width) / 60.0))
+        xs = torch.from_numpy(x).cuda()
+        t0 = time.perf_counter()
+        want = iir.filtfilt_cascade_plain(xs, lengths, stages)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        got = iir.filtfilt_cascade(xs, lengths, stages)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / float(xs.abs().max())
+        b_ms, b_by, steps, parts = filtfilt_bound(iir, lengths, stages, clock)
+        row = {"case": name, "rows": len(lengths), "samples": sum(lengths),
+               "stages": len(stages), "max_abs_err": err, "max_rel_err": rel,
+               "tol": 1e-10, "ms": cuda_time(
+                   lambda: iir.filtfilt_cascade(xs, lengths, stages)),
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "chain_steps": steps, "library_ms": None, **parts}
+        rows.append(row)
+        print(f"[etl] filtfilt_kernel {name}, {len(stages)} stages: rel err "
+              f"{rel:.3e} (tol 1e-10); kernel {row['ms']:.3f} ms, plain "
+              f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}: chain of "
+              f"{steps} samples x 3 dependent f64 ops = {parts['chain_ms']:.4f}"
+              f" ms at {FP64_DEP_CYCLES} cycles and {clock / 1e9:.3f} GHz; "
+              f"bytes {parts['bytes_ms']:.5f} ms; ops {parts['ops_ms']:.5f} "
+              f"ms) ({card})", flush=True)
+        if not rel <= 1e-10:
+            raise SystemExit(f"filtfilt_kernel disagrees with its plain "
+                             f"version: {row}")
+        if summary is None:
+            summary = {k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms")}
+            summary["max_rel_err"] = max(r["max_rel_err"] for r in rows)
+    summary["max_rel_err"] = max(r["max_rel_err"] for r in rows)
+
+    # The MFCC frontend and the EMG features on the card against the CPU.
+    audio = torch.from_numpy(0.1 * rng.normal(size=5 * 16_000))
+    calc = audio_dsp.MFCCsCalculator(device="cuda")
+    got = calc(audio)
+    want = audio_dsp.MFCCsCalculator(device="cpu")(audio)
+    mfcc_err = float((got.cpu() - want).abs().max())
+    mfcc_ok = bool(torch.allclose(got.cpu(), want, rtol=2e-4, atol=5e-3))
+    mfcc_ms = cuda_time(lambda: calc(audio.cuda()))
+    emg = rng.normal(0.0, 20.0, (4_000, 8))
+    feats = emg_dsp.get_emg_features(torch.from_numpy(emg).cuda(), pad=True)
+    feats_cpu = emg_dsp.get_emg_features(torch.from_numpy(emg), pad=True)
+    feats_err = float((feats.cpu() - feats_cpu).abs().max())
+    feats_ok = bool(torch.allclose(feats.cpu(), feats_cpu, rtol=1e-5,
+                                   atol=1e-6))
+    print(f"[etl] MFCC of 5 s on the card vs the CPU: max|diff| "
+          f"{mfcc_err:.3e} (rtol 2e-4, atol 5e-3) {mfcc_ok}, {mfcc_ms:.3f} ms "
+          f"per call; get_emg_features of 5 s x 8 channels: max|diff| "
+          f"{feats_err:.3e} (rtol 1e-5, atol 1e-6) {feats_ok} ({card})",
+          flush=True)
+    if not (mfcc_ok and feats_ok):
+        raise SystemExit("the MFCC or the EMG features differ between the "
+                         "card and the CPU")
+    return {"filtfilt": rows, "mfcc_max_abs_diff": mfcc_err,
+            "mfcc_ms": mfcc_ms, "emg_feats_max_abs_diff": feats_err}, summary
+
+
+class HubertStandIn:
+    """A fixed random projection in place of Soft HuBERT, on the card:
+    50 Hz / 256-dim units from 320-sample windows, the HuBERT contract
+    ``units(audio [1, 1, T] f32) -> [1, T // 320, 256]`` (the projection of
+    tests/test_etl_scripts.py's stub, in torch)."""
+
+    def __init__(self, torch, device, seed: int = 0):
+        self._mix = torch.from_numpy(np.random.default_rng(seed).normal(
+            size=(320, 256)).astype(np.float32)).to(device)
+
+    def units(self, audio):
+        audio = audio.reshape(-1)
+        frames = audio.shape[0] // 320
+        return (audio[: frames * 320].reshape(frames, 320) @ self._mix)[None]
+
+
+def _textgrid(duration: float, phones) -> str:
+    edges = np.linspace(0.0, duration, len(phones) + 1)
+    intervals = "\n".join(
+        f"        intervals [{i + 1}]:\n            xmin = {edges[i]:.4f}\n"
+        f"            xmax = {edges[i + 1]:.4f}\n            text = \"{ph}\""
+        for i, ph in enumerate(phones))
+    return ('File type = "ooTextFile"\nObject class = "TextGrid"\n\nxmin = 0\n'
+            f'xmax = {duration:.4f}\ntiers? <exists>\nsize = 1\nitem []:\n'
+            '    item [1]:\n        class = "IntervalTier"\n'
+            f'        name = "phones"\n        xmin = 0\n'
+            f'        xmax = {duration:.4f}\n'
+            f'        intervals: size = {len(phones)}\n{intervals}\n')
+
+
+def write_raw_tree(root: Path, rng, per_session: int = 16):
+    """A raw Gaddy & Klein tree at the corpus's shapes: a voiced-parallel,
+    a silent-parallel (book locations matching the voiced ones, the first
+    dev, the second test) and a nonparallel session of ``per_session``
+    utterances of 3-8 s each, plus silence clip 0 in each: 8-channel 1 kHz
+    f64 EMG, 16 kHz float32 audio, info JSON and TextGrids (as
+    tests/test_etl_scripts.py builds them, longer and more). Returns the
+    seconds of EMG written, noise clips excluded."""
+    from ste_gan_torch.etl.audio_dsp import write_audio_file
+
+    src, align = root / "emg_data", root / "text_alignments"
+    phones = ["sil", "hh", "ah", "l", "ow", "w", "er", "l", "d", "sil"]
+    durations = rng.uniform(3.0, 8.0, per_session).round(2)
+    total = 0.0
+    for kind, book, first in (("voiced_parallel_data", "book1", 10),
+                              ("silent_parallel_data", "book1", 10),
+                              ("nonparallel_data", "book2", 500)):
+        session = src / kind / f"{kind.split('_')[0]}_sess"
+        session.mkdir(parents=True)
+        (align / session.name).mkdir(parents=True, exist_ok=True)
+        utts = [(0, "", -1, 1.0)] + [
+            (i + 1, f"utterance {i}", first + i, float(durations[i]))
+            for i in range(per_session)]
+        for index, text, sentence, duration in utts:
+            n_audio, n_emg = int(duration * 16_000), int(duration * 1000)
+            tone = 0.3 * np.sin(2 * np.pi * 220 * np.arange(n_audio) / 16_000)
+            noise = 0.02 * rng.normal(size=n_audio)
+            audio = noise if sentence < 0 else tone + noise
+            write_audio_file(session / f"{index}_audio.flac",
+                             audio.astype(np.float32), 16_000)
+            np.save(session / f"{index}_emg.npy",
+                    rng.normal(0.0, 20.0, (n_emg, 8)))
+            (session / f"{index}_info.json").write_text(json.dumps(
+                {"text": text, "book": book, "sentence_index": sentence}))
+            if sentence >= 0:
+                total += duration
+                (align / session.name / f"{session.name}_{index}_audio"
+                 f".TextGrid").write_text(_textgrid(duration, phones))
+    (root / "testset_largedev.json").write_text(json.dumps(
+        {"dev": [["book1", 10]], "test": [["book1", 11]]}))
+    return total
+
+
+def check_prep(torch, iir, card, etl):
+    """``clean_audio`` then ``prep_data`` on the card over a synthetic raw
+    tree at the corpus's shapes (three sessions, 48 utterances of 3-8 s),
+    with a HuBERT stand-in on the card: the invariants, the split routing,
+    a load with the port's dataset, ``filtfilt_kernel`` launches (zeroed
+    just before the prep), seconds of EMG per second and ms per utterance;
+    then the prep on the card and with ``device="cpu"`` agree for the two
+    shortest voiced utterances."""
+    from ste_gan_torch import clean_audio, prep_data
+    from ste_gan_torch.constants import DataType, SpeakingMode
+    from ste_gan_torch.data.dataset import EMGDataset
+
+    work = ROOT / "build" / "chip_smoke_prep"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        emg_s = write_raw_tree(work, np.random.default_rng(12))
+        t0 = time.perf_counter()
+        cleaned = clean_audio.main(["--source_data_dir",
+                                    str(work / "emg_data")])
+        torch.cuda.synchronize()
+        clean_s = time.perf_counter() - t0
+        stand_in = HubertStandIn(torch, "cuda")
+        saved_loader = prep_data.load_hubert
+        prep_data.load_hubert = lambda *a, **k: stand_in
+        common = ["--source_data_dir", str(work / "emg_data"),
+                  "--text_alignment_dir", str(work / "text_alignments"),
+                  "--testset_file", str(work / "testset_largedev.json")]
+        try:
+            iir.filtfilt_cascade.launches = 0
+            t0 = time.perf_counter()
+            written = prep_data.main([*common, "--target_dir",
+                                      str(work / "corpus")])
+            torch.cuda.synchronize()
+            prep_s = time.perf_counter() - t0
+            launches = iir.filtfilt_cascade.launches
+        finally:
+            prep_data.load_hubert = saved_loader
+        if launches <= 0:
+            raise SystemExit("filtfilt_kernel never launched by the prep")
+
+        target = work / "corpus"
+        counts, problems = {}, []
+        for split in ("train", "valid", "test"):
+            ids = sorted(p.stem for p in (target / split / "emg").glob("*.npy"))
+            counts[split] = len(ids)
+            for utt in ids:
+                emg = np.load(target / split / "emg" / f"{utt}.npy")
+                units = np.load(target / split / "units" / f"{utt}.npy")
+                feats = np.load(target / split / "emg_feats" / f"{utt}.npy")
+                mfccs = np.load(target / split / "mfccs" / f"{utt}.npy")
+                phon = np.load(target / split / "phonemes" / f"{utt}.npy")
+                ok = (len(mfccs) == 2 * len(units) == 2 * len(phon)
+                      and emg.dtype == np.float32 and np.all(np.abs(emg) <= 1)
+                      and np.all(np.isfinite(feats)))
+                if utt.endswith(SpeakingMode.NORMAL):
+                    ok = ok and len(emg) == 16 * len(units) and len(feats) == len(mfccs)
+                if not ok:
+                    problems.append(f"{split}/{utt}")
+        routed = (counts["valid"] == 2 and counts["test"] == 2
+                  and counts["train"] == written - 4)
+        train = EMGDataset(target, partition="train", strict=True,
+                           filter_by_length=False, only_include_voiced=False)
+        loaded = len(train) == counts["train"] and train[0][
+            DataType.REAL_EMG].shape[1] == 8
+        print(f"[prep] clean_audio: {cleaned} files in {clean_s:.2f} s; "
+              f"prep_data: {written} utterances ({emg_s:.1f} s of EMG) in "
+              f"{prep_s:.2f} s = {emg_s / prep_s:.1f} s of EMG per s, "
+              f"{1e3 * prep_s / written:.1f} ms per utterance (the three "
+              f"passes of the JAX prep's main: dev, test, all), "
+              f"filtfilt_kernel launches {launches} ({etl['filtfilt'][0]['ms']:.3f}"
+              f" ms at 8 x 15,000, {etl['filtfilt'][1]['ms']:.3f} ms at 8 x "
+              f"4,000), MFCC {etl['mfcc_ms']:.3f} ms per 5 s; splits {counts}, routed "
+              f"{routed}, invariants broken by {problems}, dataset load "
+              f"{loaded} ({card})", flush=True)
+        if problems or not routed or not loaded:
+            raise SystemExit("the prepared corpus breaks the prep's "
+                             "invariants")
+
+        # Voiced utterances on the card and on the CPU.
+        diffs = {}
+        kw = dict(silent_dirs=[work / "emg_data" / "silent_parallel_data"],
+                  voiced_dirs=[work / "emg_data" / "voiced_parallel_data"],
+                  text_align_directory=work / "text_alignments",
+                  testset_file=work / "testset_largedev.json",
+                  no_testset=True)
+        card_prep = prep_data.GaddyKleinPrep(hubert=stand_in, device="cuda", **kw)
+        cpu_prep = prep_data.GaddyKleinPrep(
+            hubert=HubertStandIn(torch, "cpu"), device="cpu", **kw)
+        # The two shortest voiced utterances (with their neighbours, the
+        # plain filters on the CPU take seconds each).
+        voiced = sorted(
+            (i for i, (d, _) in enumerate(card_prep.example_indices)
+             if not d.silent),
+            key=lambda i: (card_prep.example_indices[i][0].directory /
+                           f"{card_prep.example_indices[i][1]}_emg.npy"
+                           ).stat().st_size)[:2]
+        tols = {"emg": (1e-5, 1e-6), "emg_features": (1e-5, 1e-6),
+                "mfccs": (2e-4, 5e-3), "speech_units": (1e-4, 1e-4)}
+        ok = True
+        for i in voiced:
+            a, b = card_prep[i], cpu_prep[i]
+            for key, (rtol, atol) in tols.items():
+                x, y = a[key].cpu(), b[key]
+                diffs.setdefault(key, 0.0)
+                diffs[key] = max(diffs[key], float((x - y).abs().max()))
+                ok = ok and x.shape == y.shape and bool(torch.allclose(
+                    x, y, rtol=rtol, atol=atol))
+        print(f"[prep] {len(voiced)} voiced utterances, card vs CPU: max|diff| "
+              f"{json.dumps(diffs)} within {json.dumps(tols)}: {ok}",
+              flush=True)
+        if not ok:
+            raise SystemExit("the prep on the card differs from the CPU's")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"utterances": written, "emg_s": emg_s, "clean_s": clean_s,
+            "prep_s": prep_s, "emg_s_per_s": emg_s / prep_s,
+            "ms_per_utterance": 1e3 * prep_s / written,
+            "filtfilt_launches": launches, "splits": counts,
+            "card_vs_cpu_max_abs_diff": diffs}
+
+
+def check_moe(torch, tenc, fa, dtw, load_config, init_emg_encoder, Config,
+              card, dense_step, encoder_runs, trainer_run):
+    """The mixture-of-experts encoder (``conv_transformer_moe.yaml``):
+    two narrow MoE train steps, voiced and mixed, on the card and on the
+    CPU (rtol 1e-3); the bare step at full width on the 128,000-sample
+    budget, voiced and mixed (3 warm-up, 10 timed), with its peak memory
+    against the dense step's and against what ``[S, E, C]`` one-hot
+    dispatch and combine tensors would add; the encoder CLI with the MoE
+    config, voiced and mixed, one epoch each; its checkpoint loaded
+    strictly into ``EMGDecoder`` and, as the frozen encoder, into the GAN
+    trainer CLI for 3 steps."""
+    from ste_gan_torch import constants as C
+    from ste_gan_torch.infer import EMGDecoder
+    from ste_gan_torch.train import train_gan
+    from ste_gan_torch.train.encoder_data import fold_encoder_batch
+
+    report = {}
+    # -- narrow reference, card against CPU --
+    cfg = Config()
+    cfg.emg_encoder.params = {"model_size": 32, "num_transformer_layers": 2,
+                              "num_heads": 4, "dim_feedforward": 64,
+                              "dropout": 0.0, "moe_experts": 4,
+                              "moe_top_k": 2, "moe_capacity_factor": 1.0}
+    base = init_emg_encoder(cfg, torch.float32,
+                            torch.Generator().manual_seed(0))
+    for mode, fraction in (("voiced", 0.0), ("mixed", 0.5)):
+        rng = np.random.default_rng(13 if mode == "voiced" else 14)
+        batches = []
+        for _ in range(2):
+            items = encoder_items(rng, 6400, fraction, frames=(30, 70))
+            batches.append(fold_encoder_batch(
+                items, n_win=4, max_samples=16,
+                **silent_fold_dims(items)).as_dict())
+        t_pred = int(max(b.get("silent_pred_len", np.zeros(1)).max()
+                         for b in batches))
+        results = {device: {f"{mode} step {i}": v for i, v in enumerate(
+            encoder_reference_steps(torch, tenc, base, batches, t_pred,
+                                    device))}
+                   for device in ("cuda", "cpu")}
+        report[f"narrow_{mode}"] = {"worst_rel": worst_relative(
+            results, f"narrow MoE {mode} step"), **results}
+    print(f"[moe] narrow f32 MoE encoder steps, cuda vs cpu: worst relative "
+          f"loss difference voiced {report['narrow_voiced']['worst_rel']:.3e},"
+          f" mixed {report['narrow_mixed']['worst_rel']:.3e} (tol 1e-3)",
+          flush=True)
+
+    # -- the full-width step --
+    enc_yaml = ROOT / "configs" / "emg_encoder" / "conv_transformer_moe.yaml"
+    mcfg = load_config(emg_enc_cfg=str(enc_yaml))
+    model = init_emg_encoder(mcfg, torch.float32,
+                             torch.Generator().manual_seed(0)).cuda()
+    n_params = sum(p.numel() for p in model.parameters())
+    moe = model.transformer.layers[0].moe_ffn
+    mixed_dims = {"max_silent": 24, "silent_target_frames": 259,
+                  "silent_pred_frames": 259}
+    tokens = 80 * 1600 // 16
+    cap = moe.capacity(tokens)
+    one_hot_bytes = 2 * tokens * moe.num_experts * cap * 4 * len(
+        model.transformer.layers)
+    state_gib = 16.0 * (n_params - dense_step["params"]) / 2**30
+    torch.backends.cudnn.allow_tf32 = True
+    for mode, fraction, dims in (("voiced", 0.0, {}),
+                                 ("mixed", 0.25, mixed_dims)):
+        items = encoder_items(np.random.default_rng(8), 128_000, fraction)
+        host = fold_encoder_batch(items, n_win=80, max_samples=160,
+                                  **dims).as_dict()
+        batch = {k: torch.from_numpy(np.asarray(v)).cuda()
+                 for k, v in host.items()}
+        samples = sum(len(it[C.DataType.REAL_EMG]) for it in items)
+        t_pred = dims.get("silent_pred_frames", 0)
+        fa.fused_adamw_.launches = dtw.dtw_alignment_batched.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        sec, losses = time_encoder_step(torch, tenc, model, batch, t_pred)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with torch.no_grad():
+            model(batch["emg_windows"], train=True, shift=0,
+                  generator=torch.Generator(device="cuda").manual_seed(0))
+        aux = float(model.pop_moe_aux_loss())
+        dense_peak = dense_step["default" if mode == "voiced" else "mixed"][
+            "peak_gib"]
+        bad = [x for x in losses + [aux] if x != x or abs(x) == float("inf")]
+        launches = {"fused_adamw": fa.fused_adamw_.launches,
+                    "dtw": dtw.dtw_alignment_batched.launches}
+        row = report[f"full_{mode}"] = {
+            "ms_per_step": 1e3 * sec, "emg_samples": samples,
+            "emg_samples_per_s": samples / sec, "peak_gib": peak,
+            "dense_peak_gib": dense_peak, "one_hot_gib": one_hot_bytes / 2**30,
+            "aux_loss": aux, "tokens": tokens, "capacity": cap,
+            "expert_state_gib": state_gib,
+            "params": n_params, "launches": launches, "losses": losses}
+        print(f"[moe] full width ({n_params} params, 6 layers x 4 experts, "
+              f"top-2, capacity {cap} of {tokens} tokens), {mode} batch "
+              f"({samples} EMG samples), cuDNN TF32 on: {1e3 * sec:.2f} "
+              f"ms/step, {samples / sec:.1f} EMG samples/s, peak {peak:.2f} "
+              f"GiB (dense step {dense_peak:.2f} GiB; one-hot [S, E, C] "
+              f"dispatch and combine would add {one_hot_bytes / 2**30:.2f} "
+              f"GiB), aux loss summed over the layers {aux:.4f}, launches {json.dumps(launches)} "
+              f"({card})", flush=True)
+        if bad or launches["fused_adamw"] != len(losses) or (
+                t_pred and launches["dtw"] != len(losses)):
+            raise SystemExit(f"full-width MoE step ({mode}): losses {losses}, "
+                             f"aux {aux}, launches {launches}")
+        # Beyond the dense step: the experts' parameters, gradients and two
+        # moments, and the experts' activations; one-hot tensors would add
+        # at least half of their size on top.
+        extra = peak - dense_peak - state_gib
+        row["extra_activation_gib"] = extra
+        if not extra < 0.5 * one_hot_bytes / 2**30:
+            raise SystemExit(f"the MoE step's peak {peak:.2f} GiB leaves "
+                             f"{extra:.2f} GiB beyond the dense step and the "
+                             f"experts' state: not far under the one-hot "
+                             f"tensors' {one_hot_bytes / 2**30:.2f} GiB")
+    del model, batch
+    torch.cuda.empty_cache()
+
+    # -- the encoder CLI with the MoE config, then the hand-off --
+    work = ROOT / "build" / "chip_smoke_encoder"
+    for mode, data_yaml in (("voiced", "synthetic.yaml"),
+                            ("mixed", "synthetic_mixed.yaml")):
+        argv = ["--config", str(ROOT / "configs" / "ste_gan_base_gantts.yaml"),
+                "--data", str(work / data_yaml), "--emg_enc_cfg",
+                str(enc_yaml), "--exp_dir", str(work / "exp_moe"),
+                "--num_epochs", "1"]
+        if mode == "mixed":
+            argv.append("--include_silent")
+        fa.fused_adamw_.launches = dtw.dtw_alignment_batched.launches = 0
+        t0 = time.perf_counter()
+        tenc.main(tenc.parse_args(argv))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        suffix = "_mixed" if mode == "mixed" else "_voiced_only"
+        run = work / "exp_moe" / tenc.create_output_dir_name(
+            Path(encoder_runs[mode]["corpus"]), "EMGEncoderTransformer" + suffix)
+        logged = {}
+        for line in (run / "metrics.jsonl").read_text().splitlines():
+            rec = json.loads(line)
+            logged.setdefault(rec["tag"], []).append(rec["value"])
+        values = logged["train/loss"] + logged["val/loss"]
+        launches = {"fused_adamw": fa.fused_adamw_.launches,
+                    "dtw": dtw.dtw_alignment_batched.launches}
+        report[f"cli_{mode}"] = {"run_s": run_s, "launches": launches,
+                                 "train_loss": logged["train/loss"],
+                                 "val_loss": logged["val/loss"],
+                                 "checkpoint": str(run / "best_val_loss_model.pt")}
+        print(f"[moe] encoder CLI, MoE config, {mode}, 1 epoch: "
+              f"{len(logged['train/loss'])} steps in {run_s:.1f} s, val loss "
+              f"{logged['val/loss']}, launches {launches} ({card})", flush=True)
+        if (any(x != x or abs(x) == float("inf") for x in values)
+                or launches["fused_adamw"] <= 0
+                or (mode == "mixed" and launches["dtw"] <= 0)
+                or not (run / "best_val_loss_model.pt").exists()):
+            raise SystemExit(f"MoE encoder CLI ({mode}) failed: {report}")
+
+    best = Path(report["cli_voiced"]["checkpoint"])
+    torch.backends.cudnn.allow_tf32 = False
+    decoder = EMGDecoder.from_checkpoint(mcfg, best, device="cuda")  # strict
+    emg = np.tanh(np.random.default_rng(15).normal(
+        0, 0.5, (16_000, 8))).astype(np.float32)
+    units, phones = decoder.decode(emg)
+    if units.shape != (1000, 256) or not np.all(np.isfinite(units)):
+        raise SystemExit(f"EMGDecoder on the MoE checkpoint: {units.shape}")
+
+    trainer_cfg = Path(trainer_run).parent.parent / "config_short.yaml"
+    data_yaml = Path(trainer_run).parent.parent / "data.yaml"
+    moe_cfg = Path(trainer_run).parent.parent / "config_moe.yaml"
+    import yaml
+
+    base = yaml.safe_load(trainer_cfg.read_text())
+    base["model_base_dir"] = str(work / "exp_moe_gan")
+    moe_cfg.write_text(yaml.safe_dump(base))
+    fa.fused_adamw_.launches = 0
+    t0 = time.perf_counter()
+    train_gan.main(train_gan.parse_args([
+        "--config", str(moe_cfg), "--data", str(data_yaml), "--emg_enc_cfg",
+        str(enc_yaml), "--emg_enc_ckpt", str(best), "--max_steps", "3"]))
+    torch.cuda.synchronize()
+    gan_s = time.perf_counter() - t0
+    runs = list((work / "exp_moe_gan").iterdir())
+    done = len(runs) == 1 and (runs[0] / ".done").exists()
+    losses = []
+    if done:
+        for line in (runs[0] / "metrics.jsonl").read_text().splitlines():
+            rec = json.loads(line)
+            if rec["tag"].startswith("train_loss/"):
+                losses.append(rec["value"])
+    finite = bool(losses) and all(x == x and abs(x) != float("inf")
+                                  for x in losses)
+    report["handoff"] = {"decoder_units": list(units.shape),
+                         "gan_steps_s": gan_s, "gan_done": done,
+                         "gan_losses_finite": finite,
+                         "gan_adamw_launches": fa.fused_adamw_.launches}
+    print(f"[moe] {best.name} loads strictly into EMGDecoder (10 s -> "
+          f"{units.shape}) and into the GAN trainer as its frozen encoder: "
+          f"steps 0-3 in {gan_s:.1f} s, .done {done}, {len(losses)} logged "
+          f"losses finite {finite} ({card})", flush=True)
+    if not (done and finite):
+        raise SystemExit("the GAN trainer did not run with the MoE encoder")
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -1782,6 +2346,20 @@ def main() -> int:
         report["serve"] = check_serve(
             torch, card, report["trainer"]["run_dir"],
             report["encoder_trainer"], artifacts["generator_f32_serving"])
+
+        # ---- Corpus preparation: the filter kernel, then the cleaning
+        # and prep CLIs over a raw tree at the corpus's shapes. ----
+        from ste_gan_torch.ops import iir
+
+        report["etl"], iir_summary = check_etl(torch, iir, card)
+        report["prep"] = check_prep(torch, iir, card, report["etl"])
+
+        # ---- The mixture-of-experts encoder, on the encoder phase's
+        # corpora and the trainer phase's configuration. ----
+        report["moe"] = check_moe(
+            torch, tenc, fa, dtw, load_config, init_emg_encoder, Config,
+            card, report["encoder_step"], report["encoder_trainer"],
+            report["trainer"]["run_dir"])
     finally:
         for work in ("chip_smoke_trainer", "chip_smoke_encoder"):
             shutil.rmtree(ROOT / "build" / work, ignore_errors=True)
@@ -1827,6 +2405,13 @@ def main() -> int:
         "evaluate_launches": report["evaluate"]["encoder_silent"][
             "dtw_launches"],
         **dtw_summary})
+    kernels.append({
+        "name": "filtfilt", "route": "cuda", "source": "ste_gan_torch/csrc/iir.cu",
+        "kernel": "filtfilt_kernel",
+        "replaces": "ste_gan_tpu/etl/emg_dsp.py:33",
+        "launches": report["prep"]["filtfilt_launches"],
+        "launches_on": "the [prep] run (clean_audio, then prep_data)",
+        **iir_summary})
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

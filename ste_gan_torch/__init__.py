@@ -2,9 +2,11 @@
 
 The port of the JAX package ``ste_gan_tpu`` (the reference, which stays as it
 is). Plain tensor code is PyTorch; every kernel the JAX package wrote in
-Pallas is a CUDA C++ kernel for Hopper (``csrc/``), and so is the DTW
-alignment of the encoder's silent loss, all built with ``nvcc`` at first
-use and loaded with ``ctypes`` (``ops/build.py``).
+Pallas is a CUDA C++ kernel for Hopper (``csrc/``), and so are the DTW
+alignment of the encoder's silent loss and the zero-phase IIR filters of
+the corpus preparation (``etl/``, ``clean_audio.py``, ``prep_data.py``),
+all built with ``nvcc`` at first use and loaded with ``ctypes``
+(``ops/build.py``).
 
 The port imports ``torch``, ``numpy`` and ``yaml`` and nothing of JAX or of
 ``ste_gan_tpu``. Entry points run on ``cuda`` unless the caller passes

@@ -153,6 +153,20 @@ def export_generator(generator, feature_dim: int, serving: bool = False,
         return torch.export.export(program, args, dynamic_shapes=shapes)
 
 
+def check_exportable_encoder(encoder) -> None:
+    """Raise for a mixture-of-experts encoder. Its expert capacity
+    ``ceil(capacity_factor * k * S / E)`` is a function of the token count
+    ``S``, which an export with a symbolic batch and length leaves
+    symbolic; the JAX package's ``export_emg_encoder`` and
+    ``quant.export_emg_encoder_quantized`` fail on it too (a concretisation
+    error), so neither package exports one."""
+    if getattr(encoder, "moe_experts", 0):
+        raise NotImplementedError(
+            "a mixture-of-experts encoder cannot be exported: its expert "
+            "capacity depends on the symbolic number of tokens (the JAX "
+            "package's export refuses it as well)")
+
+
 def export_emg_encoder(encoder, num_emg_channels: int,
                        quantized: Optional[Mapping[str, torch.Tensor]] = None):
     """Export the EMG encoder (eval mode: running statistics, no dropout),
@@ -169,6 +183,7 @@ def export_emg_encoder(encoder, num_emg_channels: int,
     range (one that excluded a batch of 1 on the H100)."""
     from torch.export.passes import move_to_device_pass
 
+    check_exportable_encoder(encoder)
     dev = _device_of(encoder)
     cpu = torch.device("cpu")
     if dev != cpu:

@@ -21,7 +21,7 @@ On the card "exact" means equal to f32 reduction noise: cuDNN may pick
 another algorithm for another length, and f32 convs run in TF32 unless
 ``torch.backends.cudnn.allow_tf32`` is off.
 
-Not ported: the ``mesh=`` scale-out (``ROADMAP.md`` §1 item 5) raises.
+Not ported: the ``mesh=`` scale-out (``ROADMAP.md`` §1 item 1) raises.
 """
 from __future__ import annotations
 
@@ -53,7 +53,7 @@ def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: the port runs inference on one device; scale-out "
-            "inference is not ported yet (ROADMAP.md §1 item 5)")
+            "inference is not ported yet (ROADMAP.md §1 item 1)")
 
 
 def _synchronize(device: torch.device) -> None:

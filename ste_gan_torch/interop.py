@@ -137,7 +137,12 @@ def discriminator_params_to_state_dict(params: Mapping, spectral: Mapping,
 
 
 def encoder_variables_to_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
-    """JAX encoder {"params", "batch_stats"} -> reference-layout state dict."""
+    """JAX encoder {"params", "batch_stats"} -> reference-layout state dict.
+
+    A mixture-of-experts layer (``transformer_{i}/moe_ffn``) has no
+    counterpart in the reference layout, so the port names its keys itself:
+    ``transformer.layers.{i}.moe_ffn.{router,w1,b1,w2,b2}``, the port's
+    module paths, each array in the JAX layout (no transpose)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     sd: Dict[str, np.ndarray] = {}
@@ -162,8 +167,13 @@ def encoder_variables_to_state_dict(variables: Mapping) -> Dict[str, np.ndarray]
                 sd[f"{prefix}.self_attn.relative_positional.embeddings"] = (
                     np.asarray(attn["relative_positional"]["embeddings"],
                                np.float32)[..., None])
-            _linear(sd, f"{prefix}.linear1", p["linear1"])
-            _linear(sd, f"{prefix}.linear2", p["linear2"])
+            if "moe_ffn" in p:
+                for w in ("router", "w1", "b1", "w2", "b2"):
+                    sd[f"{prefix}.moe_ffn.{w}"] = np.asarray(
+                        p["moe_ffn"][w], np.float32)
+            else:
+                _linear(sd, f"{prefix}.linear1", p["linear1"])
+                _linear(sd, f"{prefix}.linear2", p["linear2"])
             for norm in ("norm1", "norm2"):
                 sd[f"{prefix}.{norm}.weight"] = np.asarray(
                     p[norm]["scale"], np.float32)
@@ -245,7 +255,8 @@ def train_state_from_jax(jstate, models, state) -> None:
 def encoder_train_state_from_jax(jstate, model: torch.nn.Module, state) -> None:
     """Carry a JAX ``EncoderTrainState`` into the port's encoder and
     ``EncoderTrainState``, in place: parameters and BatchNorm statistics,
-    the optax AdamW moments, count and learning rate, and the step."""
+    the optax AdamW moments (an MoE layer's under the port's own
+    ``moe_ffn`` keys), count and learning rate, and the step."""
     load_encoder(model, {"params": jstate.params,
                          "batch_stats": jstate.batch_stats})
     names = [n for n, _ in model.named_parameters()]

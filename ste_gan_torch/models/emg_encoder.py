@@ -14,6 +14,10 @@ and draws dropout from the ``torch.Generator`` it is given.
 
 Takes channel-last ``[B, T, C]`` EMG; module paths follow the reference
 state-dict layout (``conv_blocks.i``, ``transformer.layers.i``).
+``moe_experts > 0`` gives every transformer layer a mixture-of-experts FFN
+(``transformer.layers.i.moe_ffn``; ``configs/emg_encoder/
+conv_transformer_moe.yaml``); a training forward records each block's
+load-balancing loss, which :meth:`pop_moe_aux_loss` collects.
 """
 from __future__ import annotations
 
@@ -91,10 +95,13 @@ class EMGEncoderTransformer(nn.Module):
                  num_transformer_layers: int = 6, num_heads: int = 8,
                  dim_feedforward: int = 3072,
                  relative_positional_distance: int = 100,
+                 moe_experts: int = 0, moe_top_k: int = 2,
+                 moe_capacity_factor: float = 1.5,
                  dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
+        self.moe_experts = moe_experts
         self.dropout = dropout
         blocks, cin = [], num_ins
         for _ in range(1 + num_extra_res_blocks):
@@ -107,7 +114,9 @@ class EMGEncoderTransformer(nn.Module):
         self.transformer.layers = nn.ModuleList([
             TransformerEncoderLayer(
                 model_size, num_heads, dim_feedforward, dropout, True,
-                relative_positional_distance, dtype, generator)
+                relative_positional_distance, dtype, generator,
+                moe_experts=moe_experts, moe_top_k=moe_top_k,
+                moe_capacity_factor=moe_capacity_factor)
             for _ in range(num_transformer_layers)])
         self.w_out = torch_linear(model_size, num_outs, generator)
         self.w_aux = torch_linear(model_size, num_aux_outs, generator)
@@ -139,9 +148,19 @@ class EMGEncoderTransformer(nn.Module):
         dt = self.dtype
         x = self._frontend(x_raw, train, shift)
         for layer in self.transformer.layers:
-            x = layer(x, generator if train else None)
+            x = layer(x, generator if train else None, train=train)
         return (linear(x, self.w_out, dt).float(),
                 linear(x, self.w_aux, dt).float())
+
+    def pop_moe_aux_loss(self) -> Optional[torch.Tensor]:
+        """The sum of the MoE blocks' load-balancing losses recorded by the
+        last training forward (None for a dense encoder), cleared."""
+        losses = []
+        for layer in self.transformer.layers:
+            if layer.moe_ffn is not None and layer.moe_ffn.aux_loss is not None:
+                losses.append(layer.moe_ffn.aux_loss)
+                layer.moe_ffn.aux_loss = None
+        return sum(losses) if losses else None
 
     def embed(self, x_raw) -> torch.Tensor:
         """Pre-head transformer-stack activations ``[B, T/16, model_size]``
@@ -160,10 +179,6 @@ def init_emg_encoder(cfg, dtype=torch.float32,
     if cfg.emg_encoder.type != "EMGEncoderTransformer":
         raise ValueError(f"Unknown EMG encoder type: {cfg.emg_encoder.type}")
     params = dict(cfg.emg_encoder.params or {})
-    if params.get("moe_experts", 0):
-        raise NotImplementedError("the MoE encoder is not ported yet")
-    for key in ("moe_experts", "moe_top_k", "moe_capacity_factor"):
-        params.pop(key, None)
     return EMGEncoderTransformer(
         num_ins=cfg.data.num_emg_channels, num_outs=C.SPEECH_UNITS_FEAT_SIZE,
         num_aux_outs=C.NUM_PHONEMES, dtype=dtype, generator=generator,

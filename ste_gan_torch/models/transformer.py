@@ -14,6 +14,10 @@ the attention output, and twice in the FFN) only when a forward is given a
 ``torch.Generator``: the masks come from that generator and nothing else,
 and kept values are scaled by ``1/keep``. Without one (the eval path and
 the frozen encoder of the GAN step) no dropout runs.
+
+``moe_experts > 0`` swaps a layer's dense FFN for the mixture-of-experts
+block (``models/moe.py``, path ``moe_ffn``), followed by one dropout, as the
+JAX layer does; dense layers are unchanged.
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ste_gan_torch.models.moe import MoEFeedForward
 
 
 def linear(x, layer: nn.Linear, dtype):
@@ -146,23 +152,36 @@ class TransformerEncoderLayer(nn.Module):
                  dim_feedforward: int = 2048, dropout: float = 0.1,
                  relative_positional: bool = True,
                  relative_positional_distance: int = 100,
-                 dtype=torch.float32, generator: Optional[torch.Generator] = None):
+                 dtype=torch.float32, generator: Optional[torch.Generator] = None,
+                 moe_experts: int = 0, moe_top_k: int = 2,
+                 moe_capacity_factor: float = 1.5):
         super().__init__()
         self.dtype = dtype
         self.self_attn = MultiHeadAttention(
             d_model, num_heads, dropout, relative_positional,
             relative_positional_distance, dtype, generator)
-        self.linear1 = torch_linear(d_model, dim_feedforward, generator)
-        self.linear2 = torch_linear(dim_feedforward, d_model, generator)
+        self.moe_ffn = None
+        if moe_experts > 0:
+            self.moe_ffn = MoEFeedForward(d_model, moe_experts, dim_feedforward,
+                                          moe_top_k, moe_capacity_factor, dtype,
+                                          generator)
+        else:
+            self.linear1 = torch_linear(d_model, dim_feedforward, generator)
+            self.linear2 = torch_linear(dim_feedforward, d_model, generator)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.dropout_rate = dropout
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
-        """``generator`` given: training-mode dropout drawn from it."""
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                train: bool = False):
+        """``generator`` given: training-mode dropout drawn from it.
+        ``train``: an MoE block records its load-balancing loss."""
         dt, p = self.dtype, self.dropout_rate
         attn = dropout(self.self_attn(x, generator), p, generator)
         x = layer_norm(x + attn, self.norm1, dt)
-        h = dropout(F.relu(linear(x, self.linear1, dt)), p, generator)
-        h = dropout(linear(h, self.linear2, dt), p, generator)
+        if self.moe_ffn is not None:
+            h = dropout(self.moe_ffn(x, train), p, generator)
+        else:
+            h = dropout(F.relu(linear(x, self.linear1, dt)), p, generator)
+            h = dropout(linear(h, self.linear2, dt), p, generator)
         return layer_norm(x + h, self.norm2, dt)

@@ -43,6 +43,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "dtw": {
         "dtw_align": [_P] * 4 + [_I] * 3 + [_P],
     },
+    "iir": {
+        "filtfilt_cascade": [_P] * 5 + [_I] * 3 + [_P],
+    },
 }
 
 _lock = threading.Lock()

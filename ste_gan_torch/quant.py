@@ -152,9 +152,11 @@ def export_emg_encoder_quantized(encoder, num_emg_channels: int):
     """int8 variant of :func:`ste_gan_torch.export.export_emg_encoder`:
     conv and linear weights, attention projections and relative-position
     tables as per-channel int8 (the encoder rule); BatchNorm statistics and
-    affines and LayerNorms stay f32. Same signature and minimum length."""
-    from ste_gan_torch.export import export_emg_encoder
+    affines and LayerNorms stay f32. Same signature and minimum length;
+    an MoE encoder raises, as in the unquantised export."""
+    from ste_gan_torch.export import check_exportable_encoder, export_emg_encoder
 
+    check_exportable_encoder(encoder)
     return export_emg_encoder(encoder, num_emg_channels,
                               quantized=quantize_state_dict(
                                   encoder.state_dict(), generic=True))

@@ -41,7 +41,7 @@ raises only after copying every key whose shape matched).
 Runs on ``cuda`` unless the caller passes ``device="cpu"``/``--device cpu``.
 Not ported: ``HostMemoryWatchdog`` and the exec restart
 (``--host_rss_restart_gb``), which work around a remote-TPU transport;
-``--data_parallel > 1`` raises (``ROADMAP.md`` §1 item 5).
+``--data_parallel > 1`` raises (``ROADMAP.md`` §1 item 1).
 """
 from __future__ import annotations
 
@@ -274,7 +274,7 @@ def _no_data_parallel(data_parallel: int) -> None:
     if data_parallel > 1:
         raise NotImplementedError(
             "--data_parallel > 1: the port serves on one device; scale-out "
-            "serving is not ported yet (ROADMAP.md §1 item 5)")
+            "serving is not ported yet (ROADMAP.md §1 item 1)")
 
 
 class SynthesisService:

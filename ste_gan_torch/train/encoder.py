@@ -29,8 +29,12 @@ the epoch. Runs on ``cuda`` unless ``--device cpu`` is given; without a card
 it raises. One device only: meshes, tensor and pipeline parallelism are not
 ported (a ``--data_parallel``, ``--model_parallel`` or ``--pipeline_stages``
 above 1 raises, as does a ``--pipeline_microbatches`` above 0), nor are the
-host-fold training path (``--no-device_resident_data`` raises) and the MoE
-encoder.
+host-fold training path (``--no-device_resident_data`` raises).
+
+``--emg_enc_cfg configs/emg_encoder/conv_transformer_moe.yaml`` trains the
+mixture-of-experts encoder: the step adds ``MOE_AUX_WEIGHT`` (0.01) times
+the sum of the blocks' load-balancing losses to the loss it differentiates
+and logs, as the JAX step does.
 """
 from __future__ import annotations
 
@@ -222,14 +226,21 @@ def random_shift(rng: np.random.Generator) -> int:
     return int(rng.integers(0, 8))
 
 
+#: Weight of the MoE blocks' load-balancing losses in the train loss (the
+#: JAX step's ``moe_aux_weight`` default, which no caller changes).
+MOE_AUX_WEIGHT = 0.01
+
+
 def make_encoder_train_step(model: EMGEncoderTransformer, max_samples: int,
                             silent_pred_frames: int = 0) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``: a train-mode
     forward (shift, batch statistics, dropout), the voiced loss plus, when
     ``silent_pred_frames > 0``, the silent DTW loss over
     ``max(num_samples, 1)`` (the reference's per-sample normalisation,
-    ste_gan/emg_encoder/train.py:146), gradients and one AdamW launch. The
-    batch must carry the silent slot fields on the mixed path."""
+    ste_gan/emg_encoder/train.py:146), plus ``MOE_AUX_WEIGHT`` times the
+    MoE blocks' load-balancing losses (an MoE encoder only), gradients and
+    one AdamW launch. The batch must carry the silent slot fields on the
+    mixed path."""
     params = list(model.parameters())
 
     def train_step(state: EncoderTrainState, batch: Batch
@@ -245,6 +256,9 @@ def make_encoder_train_step(model: EMGEncoderTransformer, max_samples: int,
             silent_sum, _ = silent_batch_loss(su_flat, ph_flat, batch,
                                               silent_pred_frames)
             loss = loss + silent_sum / batch["num_samples"].float().clamp(min=1)
+        aux = model.pop_moe_aux_loss()
+        if aux is not None:
+            loss = loss + MOE_AUX_WEIGHT * aux
         grads = torch.autograd.grad(loss, params)
         fused_adamw_(state.opt, grads)
         state.step += 1

@@ -197,11 +197,20 @@ def test_polyphase_dx_matches_pallas_and_dilate_flip(case):
 
 #: (B, T, Cin, Cout, K, stride, pad, groups): the six main-path geometries
 #: (small scale discriminators' grouped layers, 2B = 64, three scales), the
-#: CASES above, and K < stride.
+#: CASES above, K < stride, and the full scale discriminators' grouped
+#: layers (``FULL_SCALE_SPEC``, K 41; 2B = 64, three scales).
+FULL_SCALE_GROUPED = ((2048, 128, 128, 41, 2, 20, 4),
+                      (1024, 128, 256, 41, 2, 20, 16),
+                      (512, 256, 512, 41, 4, 20, 16),
+                      (128, 512, 1024, 41, 4, 20, 16),
+                      (32, 1024, 1024, 41, 1, 20, 16))
+K_BELOW_STRIDE = (2, 33, 8, 16, 3, 4, 1, 2)
 PLAN_CASES = (
     [(64, 2048 >> s, 128, 256, 37, 2, 18, 4) for s in range(3)]
     + [(64, 1024 >> s, 256, 512, 37, 2, 18, 16) for s in range(3)]
-    + CASES + [(2, 33, 8, 16, 3, 4, 1, 2)])
+    + CASES + [K_BELOW_STRIDE]
+    + [(64, t >> s, *rest) for t, *rest in FULL_SCALE_GROUPED
+       for s in range(3)])
 
 
 @pytest.mark.parametrize("case", PLAN_CASES)
@@ -263,7 +272,7 @@ def test_launch_plans_cover_the_work_once(case):
 
 
 @pytest.mark.parametrize("case", [PLAN_CASES[3], CASES[2], CASES[5],
-                                  PLAN_CASES[-1]])
+                                  K_BELOW_STRIDE])
 def test_dx_weight_layout(case):
     """``_dx_weights`` puts ``w[g*og + o, c, j0 + s*m]`` at
     ``[g, c // nb, r, m, c % nb, o]`` and zeros everywhere else."""
@@ -322,7 +331,7 @@ def test_forward_plan_covers_the_work_once(case):
 
 
 @pytest.mark.parametrize("case", [PLAN_CASES[3], CASES[2], CASES[5],
-                                  PLAN_CASES[-1]])
+                                  K_BELOW_STRIDE])
 def test_fwd_weight_layout(case):
     """``_fwd_weights`` puts ``w[g*og + o, c, j]`` at
     ``[g, o // ob, j, o % ob, c]`` and zeros everywhere else."""

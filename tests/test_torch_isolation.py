@@ -100,6 +100,33 @@ def test_deployment_entry_points_raise_without_cuda(monkeypatch, tmp_path):
             call()
 
 
+def test_corpus_preparation_raises_without_cuda(monkeypatch, tmp_path):
+    """The cleaning and prep CLIs, the MFCC frontend and the filter
+    cascade on a CUDA tensor refuse to run without a card."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from ste_gan_torch import clean_audio, prep_data
+    from ste_gan_torch.etl.audio_dsp import MFCCsCalculator
+    from ste_gan_torch.ops.iir import filtfilt_cascade
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "missing")
+    calls = [
+        lambda: prep_data.main(["--source_data_dir", missing,
+                                "--target_dir", missing]),
+        lambda: clean_audio.main(["--source_data_dir", missing]),
+        lambda: MFCCsCalculator(),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        rows = torch.zeros(8, 100, dtype=torch.float64, device="cuda")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            filtfilt_cascade(rows, [100] * 8, [(np.ones(3), np.ones(3))])
+    assert not any(tmp_path.iterdir())
+
+
 def test_chip_smoke_fails_without_cuda():
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
                           capture_output=True, text=True, timeout=120,
