@@ -122,8 +122,21 @@ Phases, each fatal on failure:
    far under what ``[S, E, C]`` one-hot tensors would add; the encoder CLI
    with the MoE config, voiced and mixed, one epoch each; its checkpoint
    loaded strictly into ``EMGDecoder`` and into the GAN trainer (3 steps);
-14. the ``kernels`` JSON line, the card line, and the last line
-   ``{"ok": true, "device": {...}}``.
+14. ``[dist]``: the data-parallel family on the one card
+   (``check_dist``): the DP and FSDP wrappers at one NCCL rank against the
+   bare step and its reruns, full width; the hand kernels at this phase's
+   shapes; two ranks sharing the card over gloo through the worker CLI
+   (``python -m ste_gan_torch.parallel.multiprocess --full``), DP and
+   FSDP, against one rank by losses, weights and the ranks' equality, and
+   a control without the gradient all-reduce that must fail; NCCL at two
+   ranks with two cards only; the launcher's elastic recovery of a killed
+   rank against its recovery point continued on one rank; ``train_gan`` and ``train.encoder`` at two ranks
+   and the two-rank checkpoint resumed by the single-device trainer; and
+   a two-replica ``EMGSynthesizer`` on the card named twice. Two ranks on
+   one card check correctness and the collectives' cost, not scaling;
+15. the ``kernels`` JSON line (each kernel's launches on the main path, and
+   under ``dist_launches`` on the [dist] paths, per rank), the card line,
+   and the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, when no CUDA device is present or when
 run outside a checkout of the repository. Details go to
@@ -314,17 +327,13 @@ def check_grouped_conv(torch, gc, F):
     return rows, summary
 
 
-def check_conv_edges(torch, gc):
-    """Forward, dX and dW against their plain versions at the edge
-    geometries and at the full scale discriminators' grouped layers (three
-    scales), f32 and bf16, same tolerances; then two bf16 dW calls at
-    layer 1, scale 0 must be bitwise equal."""
+def hold_conv(torch, gc, geometries, gen, label):
+    """Forward, dX and dW against their plain versions at each geometry
+    (B, T, Cin, Cout, K, stride, pad, groups), f32 and bf16, at ``TOL``;
+    fatal on a disagreement. Returns one row per kernel, geometry and
+    dtype."""
     rows = []
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    full = [(b, t >> scale, *rest) for b, t, *rest in FULL_SCALE_GEOMETRIES
-            for scale in range(3)]
-    for b, t, cin, cout, k, s, pad, g in EDGE_GEOMETRIES + tuple(full):
-        label = "full-disc" if (b, t, cin, cout, k, s, pad, g) in full else "edge"
+    for b, t, cin, cout, k, s, pad, g in geometries:
         t_out = gc.out_length(t, k, s, pad, pad)
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
@@ -347,14 +356,27 @@ def check_conv_edges(torch, gc):
                 rel = err / max(want.float().abs().max().item(), 1e-30)
                 row = {"kernel": name, "geometry": [b, t, cin, cout, k, s, pad, g],
                        "dtype": dname, "max_abs_err": err, "max_rel_err": rel,
-                       "tol": TOL[dname], "ok": rel <= TOL[dname]}
-                row["set"] = label
+                       "tol": TOL[dname], "ok": rel <= TOL[dname],
+                       "set": label}
                 rows.append(row)
                 print(f"[{label}] {name} {row['geometry']} {dname}: rel "
                       f"{rel:.3e} (tol {TOL[dname]:g})", flush=True)
                 if not row["ok"]:
                     raise SystemExit(f"{name} disagrees with its plain "
                                      f"version: {row}")
+    return rows
+
+
+def check_conv_edges(torch, gc):
+    """Forward, dX and dW against their plain versions at the edge
+    geometries and at the full scale discriminators' grouped layers (three
+    scales), f32 and bf16, same tolerances; then two bf16 dW calls at
+    layer 1, scale 0 must be bitwise equal."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    full = [(b, t >> scale, *rest) for b, t, *rest in FULL_SCALE_GEOMETRIES
+            for scale in range(3)]
+    rows = (hold_conv(torch, gc, EDGE_GEOMETRIES, gen, "edge")
+            + hold_conv(torch, gc, full, gen, "full-disc"))
     cin, cout, k, s, g, pad = GROUPED_LAYERS[0]
     x = torch.randn(PAIRED_BATCH, cin, CHUNK, device="cuda",
                     generator=gen).bfloat16()
@@ -2212,6 +2234,629 @@ def check_moe(torch, tenc, fa, dtw, load_config, init_emg_encoder, Config,
     return report
 
 
+#: Relative tolerance of two ranks' per-step losses against one rank's at
+#: full width in bf16 (see ``check_dist``): the sound two-rank runs read
+#: 1.0e-5 to 1.1e-5 over six calls on the H100, reruns of the bare step
+#: 1.6e-6 to 9e-6, the control without the gradient all-reduce 9.8e-4.
+DIST_LOSS_RTOL = 1e-4
+#: Largest ``_weight_deviation`` of a two-rank run's weights from the
+#: world-1 DP run's after ``DIST_STEPS`` (see ``check_dist``). On the H100
+#: the sound two-rank DP and FSDP runs read 1.47e-2 and 1.48e-2, reruns of
+#: the bare step 5.5e-3 (bf16 noise turned by Adam's early, sign-like
+#: updates), the control without the gradient all-reduce 0.153 (its loss
+#: gap 9.8e-4).
+DIST_WEIGHT_RTOL = 0.05
+#: Steps of each full-width [dist] run.
+DIST_STEPS = 4
+#: Reruns of the bare step at world 1: the largest loss gap of a rerun to
+#: its first run is the yardstick of the DP and FSDP wrappers (one rerun
+#: is a single draw of the bf16 noise and fell to 1.6e-6 where the
+#: wrappers read up to 3.4e-6).
+BARE_RERUNS = 3
+#: The wrappers' loss gap at world 1 may be this many yardsticks.
+WORLD1_YARD_FACTOR = 2.0
+#: The worker with the gradient all-reduce left out: every rank updates
+#: on its own rows' gradients (metrics are still averaged). The control
+#: that shows ``DIST_LOSS_RTOL`` catches a rank that skips the all-reduce.
+NO_ALLREDUCE_WORKER = (
+    "import sys\n"
+    "from ste_gan_torch.parallel import mesh\n"
+    "mesh.allreduce_grads_ = lambda grads, group, average=True: list(grads)\n"
+    "from ste_gan_torch.parallel.multiprocess import main\n"
+    "main(sys.argv[1:])\n")
+
+
+def _dist_env():
+    """Environment of the ranks [dist] starts: the checkout importable."""
+    return {"PYTHONPATH": str(ROOT)}
+
+
+def _dist_worker(out: Path, world: int, *flags, timeout: float = 600,
+                 no_allreduce: bool = False):
+    """The multi-rank worker CLI on ``world`` ranks of this card (with
+    ``no_allreduce``, :data:`NO_ALLREDUCE_WORKER`); returns the per-rank
+    histories and stats."""
+    from ste_gan_torch.parallel.launch import run_ranks
+
+    entry = (["-c", NO_ALLREDUCE_WORKER] if no_allreduce
+             else ["-m", "ste_gan_torch.parallel.multiprocess"])
+    cmd = [sys.executable, *entry, "--out", str(out), "--timeout_s", "300",
+           *flags]
+    run_ranks(cmd, world, out / "logs", timeout, env=_dist_env())
+    hist = [json.loads((out / f"history_p{r}.json").read_text())
+            for r in range(world)]
+    stats = [json.loads((out / f"stats_p{r}.json").read_text())
+             for r in range(world)]
+    return hist, stats
+
+
+def _loss_gaps(hist, want) -> list:
+    """Relative difference of the G and D losses, the larger, per step."""
+    return [max(abs(h[k] - w[k]) / abs(w[k]) for k in ("G", "D"))
+            for h, w in zip(hist, want)]
+
+
+def _loss_gap(hist, want) -> float:
+    """Largest relative difference of the G and D losses over the steps."""
+    return max(_loss_gaps(hist, want))
+
+
+def scale_disc_geometries(gc, disc, chunk: int, rows: int,
+                          channels: int) -> list:
+    """(B, T, Cin, Cout, K, stride, pad, groups) of every grouped conv the
+    scale discriminators of ``disc`` run on ``rows`` stacked rows of
+    ``chunk`` samples of ``channels`` channels (scale ``i`` after ``i``
+    average pools)."""
+    out, t = [], chunk
+    for i, scale in enumerate(disc.multi_scale_disc):
+        if i:
+            t = (t + 2 - 4) // 2 + 1  # avg_pool1d(window 4, stride 2, pad 1)
+        t_in, cin = t, channels
+        for layer in scale.layers:
+            k, s, pad, g = (layer.kernel_size[0], layer.stride[0],
+                            layer.padding[0], layer.groups)
+            if g > 1:
+                out.append((rows, t_in, cin, layer.out_channels, k, s, pad, g))
+            t_in, cin = gc.out_length(t_in, k, s, pad, pad), layer.out_channels
+    return out
+
+
+def check_dist_kernels(torch, gc, fa, full):
+    """The hand kernels against their plain versions at the shapes [dist]
+    gives them beyond the main path's, each fatal on a disagreement:
+    forward, dX and dW at the grouped layers of the shipped discriminator
+    on 2B = 32 rows (16 per rank over two ranks: the worker and the
+    trainer CLI) and of the fleet's tiny one on 16 and 32 rows (two ranks,
+    then one), f32 and bf16 at ``TOL``; AdamW (1e-6) over one flat tensor
+    the size of each network's FSDP shard at 1 and 2 ranks, and over the
+    tiny networks' leaves (the fleet's DP update). ``full``: the shipped
+    setup's ``(cfg, models)``. These launches are not counted."""
+    from ste_gan_torch.parallel.fsdp import shard_numel
+    from ste_gan_torch.parallel.multiprocess import tiny_setup
+
+    t0 = time.perf_counter()
+    cfg, models = full
+    cfg_t, tiny = tiny_setup("cpu")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    geoms = {
+        "shipped_2B32": scale_disc_geometries(
+            gc, models.discriminator, cfg.train.chunk_size,
+            cfg.train.batch_size, cfg.data.num_emg_channels),
+        "tiny_2B16_and_2B32": [
+            g for rows in (cfg_t.train.batch_size, 2 * cfg_t.train.batch_size)
+            for g in scale_disc_geometries(
+                gc, tiny.discriminator, cfg_t.train.chunk_size, rows,
+                cfg_t.data.num_emg_channels)]}
+    conv_rows = [row for label, gs in geoms.items()
+                 for row in hold_conv(torch, gc, gs, gen, f"dist-{label}")]
+    adamw_rows = []
+    hyper = dict(lr=2e-4, b1=0.8, b2=0.99, weight_decay=1e-2)
+    for net in ("generator", "discriminator"):
+        numels = [p.numel() for p in getattr(models, net).parameters()]
+        for ranks in (1, 2):
+            n = shard_numel(numels, ranks)
+            row = {"network": net, "layout": f"fsdp_shard_{ranks}_ranks",
+                   **adamw_row(torch, fa, [(n,)], gen, **hyper)}
+            adamw_rows.append(row)
+        shapes = [p.shape for p in getattr(tiny, net).parameters()]
+        adamw_rows.append({"network": f"tiny_{net}", "layout": "leaves",
+                           **adamw_row(torch, fa, shapes, gen, **hyper)})
+    for row in adamw_rows:
+        print(f"[dist] fused_adamw {row['network']} {row['layout']} "
+              f"({row['params']} params, {row['leaves']} leaves): max|err| "
+              f"{row['max_abs_err']:.3e} (tol {row['tol']:g}) kernel "
+              f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms library "
+              f"{row['library_ms']:.4f} ms bound {row['bound_ms']:.4f} ms",
+              flush=True)
+    summary = {name: {"shapes": sum(r["kernel"] == name for r in conv_rows),
+                      "max_rel_err": max(r["max_rel_err"] for r in conv_rows
+                                         if r["kernel"] == name)}
+               for name in ("grouped_conv_fwd", "grouped_conv_dx",
+                            "grouped_conv_dw")}
+    summary["fused_adamw"] = {
+        "shapes": len(adamw_rows),
+        "max_abs_err": max(r["max_abs_err"] for r in adamw_rows)}
+    seconds = time.perf_counter() - t0
+    print(f"[dist] kernels at this phase's shapes: {summary}, {seconds:.1f} "
+          f"s", flush=True)
+    return {"geometries": geoms, "conv": conv_rows, "adamw": adamw_rows,
+            "summary": summary, "seconds": seconds}
+
+
+def _weights(tree) -> dict:
+    """The generator's and the discriminator's state (parameters and
+    spectral buffers) of a state tree, flattened to host arrays."""
+    from ste_gan_torch.parallel.multiprocess import flatten_state
+
+    return flatten_state({"generator": tree["generator"],
+                          "discriminator": tree["discriminator"]})
+
+
+def _weight_deviation(got, want, init) -> float:
+    """||got - want|| / ||want - init|| over the weights: how far two runs'
+    weights part, as a share of how far the steps moved them."""
+    num = sum(float(np.sum((got[k].astype(np.float64) - want[k]) ** 2))
+              for k in want)
+    den = sum(float(np.sum((want[k].astype(np.float64) - init[k]) ** 2))
+              for k in want)
+    return (num / den) ** 0.5
+
+
+def _rank_weights(out: Path, world: int) -> list:
+    """The weights each rank of a worker run saved."""
+    keep = ("generator/", "discriminator/")
+    return [{k: v for k, v in np.load(out / f"state_p{r}.npz").items()
+             if k.startswith(keep)} for r in range(world)]
+
+
+def _steady_ms(hist) -> float:
+    """Median ms of the steps after the first (the first warms up)."""
+    ms = sorted(h["ms"] for h in hist[1:])
+    return ms[len(ms) // 2]
+
+
+def _logged_launches(log_txt: Path) -> dict:
+    """The hand-kernel launches a CLI's rank 0 logged at its end."""
+    for line in reversed(log_txt.read_text().splitlines()):
+        if "Hand-kernel launches in this process:" in line:
+            return json.loads(line.split("process:", 1)[1])
+    raise SystemExit(f"{log_txt} logged no kernel launches")
+
+
+def check_dist(torch, card, counters, trainer_run):
+    """``[dist]``: the data-parallel family on the one card.
+
+    1. World 1 over NCCL at full width (``Config()``, 32 x 2048, bf16): the
+       bare step from one state, then ``BARE_RERUNS`` times again (the
+       yardstick: the largest loss gap of a rerun), then the DP and FSDP
+       wrappers from the same state, 4 steps each; their losses within
+       ``WORLD1_YARD_FACTOR`` x the yardstick; ms/step; persistent state bytes per
+       rank, replicated and FSDP, and the FSDP rule's at 2, 4 and 8 ranks.
+       Then every hand kernel against its plain version at the shapes of
+       this phase (``check_dist_kernels``).
+    2. Two ranks sharing the card over gloo at full width (16 rows each),
+       through the worker CLI: DP, then FSDP; losses against world 1 within
+       ``DIST_LOSS_RTOL``; ms/step per rank, collective ms per step,
+       kernel launches per rank. Where gloo refuses CUDA tensors for
+       ``all_gather_into_tensor`` / ``reduce_scatter_tensor``, one line
+       says so and FSDP is not run. Each run's weights within
+       ``DIST_WEIGHT_RTOL`` of world 1's and equal on both ranks; a control
+       run of the worker without the gradient all-reduce must fail the
+       weight gate.
+    3. NCCL at 2 ranks, with two cards only.
+    4. Fleet recovery (launcher, two gloo ranks, ``--tiny``, deterministic,
+       6 steps, a recovery point every 2): rank 1 killed before step 3
+       and the fleet recovered elastically on one rank from step 2; its
+       final state against that step-2 point (what an uninterrupted run
+       writes there) continued by one rank in this process with the
+       worker's deterministic settings (rtol 2e-5, atol 2e-6). The
+       recovery at an unchanged rank count is held on the CPU
+       (``tests/test_torch_launch.py``).
+    5. The trainer CLIs at 2 gloo ranks: ``train_gan`` for 6 steps on the
+       [trainer] corpus, its last checkpoint resumed by the single-device
+       trainer; ``train.encoder`` for 1 voiced epoch.
+    6. ``EMGSynthesizer(devices=[cuda:0, cuda:0])`` at full width, 16 x 64
+       frames, against one device (TF32 off, ``INFER_TOL``), with times.
+
+    Two ranks on one card share its SMs and memory bandwidth: these runs
+    measure correctness and the collectives' cost, not scaling."""
+    import logging
+    import os
+
+    import torch.distributed as dist
+    import yaml
+
+    from ste_gan_torch.config import Config
+    from ste_gan_torch.infer import EMGSynthesizer
+    from ste_gan_torch.models.generator import init_emg_generator
+    from ste_gan_torch.ops import fused_adamw as fa
+    from ste_gan_torch.ops import grouped_conv as gc
+    from ste_gan_torch.parallel import mesh
+    from ste_gan_torch.parallel.fsdp import fsdp_sharding_summary
+    from ste_gan_torch.parallel.launch import (
+        FleetLauncher, free_port, parse_args, run_ranks)
+    from ste_gan_torch.parallel.multiprocess import (
+        deterministic, flatten_state, full_setup, run_steps, tiny_setup)
+    from ste_gan_torch.train import train_gan
+    from ste_gan_torch.train.checkpoint import host_copy
+    from ste_gan_torch.train.gan import init_state, state_tree
+
+    work = ROOT / "build" / "chip_smoke_dist"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    report = {"torch": torch.__version__, "cuda": torch.version.cuda,
+              "cards": torch.cuda.device_count()}
+    print(f"[dist] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.device_count()} card(s) ({card})", flush=True)
+
+    # ---- 1. World 1 over NCCL, full width. ----
+    _, _, group = mesh.init_distributed(
+        "nccl", 300, "cuda", f"tcp://localhost:{free_port()}")
+    try:
+        cfg, models = full_setup("cuda", seed=0)
+        init = work / "init.pt"
+        tree = state_tree(models, init_state(cfg, models))
+        torch.save(host_copy(tree), init)
+        weights = {"init": _weights(tree)}
+        runs = {}
+        for name in ("bare", *(f"bare_{i}" for i in range(1, BARE_RERUNS + 1))):
+            tree, runs[name], _ = run_steps(cfg, models, DIST_STEPS,
+                                            restore_ckpt=init)
+            weights[name] = _weights(tree)
+        for fn in counters.values():
+            fn.launches = 0
+        tree, runs["dp"], _ = run_steps(cfg, models, DIST_STEPS,
+                                        restore_ckpt=init, group=group)
+        weights["dp"] = _weights(tree)
+        del tree
+        _, runs["fsdp"], fsdp_stats = run_steps(
+            cfg, models, DIST_STEPS, restore_ckpt=init, group=group,
+            fsdp=True)
+        world1_launches = {n: fn.launches for n, fn in counters.items()}
+        summary = {n: fsdp_sharding_summary(models, ema=True, size=n)
+                   for n in (1, 2, 4, 8)}
+        report["kernels_at_dist_shapes"] = check_dist_kernels(
+            torch, gc, fa, (cfg, models))
+        del models
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    reruns = [f"bare_{i}" for i in range(1, BARE_RERUNS + 1)]
+    rerun_gaps = [_loss_gap(runs[r], runs["bare"]) for r in reruns]
+    yard = max(rerun_gaps)
+    gaps = {w: _loss_gap(runs[w], runs["bare"]) for w in ("dp", "fsdp")}
+    weight_dev = {w: _weight_deviation(weights[w], weights["bare"],
+                                       weights["init"])
+                  for w in (*reruns, "dp")}
+    for r in ("bare", *reruns):
+        del weights[r]
+    ms = {name: _steady_ms(h) for name, h in runs.items()}
+    report["world1"] = {"ms_per_step": ms, "yardstick_rel": yard,
+                        "rerun_gaps": rerun_gaps,
+                        "rel_gap": gaps, "losses": runs,
+                        "weight_deviation_from_bare": weight_dev,
+                        "launches": world1_launches,
+                        "fsdp_persistent_bytes": fsdp_stats[
+                            "persistent_bytes"],
+                        "fsdp_rule": summary}
+    bare_ms = " / ".join(f"{ms[r]:.2f}" for r in ("bare", *reruns))
+    print(f"[dist] world 1 over NCCL, full width, {DIST_STEPS} steps: "
+          f"ms/step bare {bare_ms}, DP wrapper {ms['dp']:.2f}, FSDP wrapper "
+          f"{ms['fsdp']:.2f}; largest relative loss gap to the bare step: "
+          f"DP {gaps['dp']:.3e}, FSDP {gaps['fsdp']:.3e}, its reruns "
+          f"{', '.join(f'{g:.3e}' for g in rerun_gaps)}; weight deviation "
+          f"from the bare step: its reruns "
+          f"{', '.join(f'{weight_dev[r]:.3e}' for r in reruns)}, DP "
+          f"{weight_dev['dp']:.3e} ({card})", flush=True)
+    print(f"[dist] persistent train state per rank: replicated "
+          f"{summary[1]['replicated_bytes'] / 2**20:.1f} MB, FSDP at 1 rank "
+          f"held {fsdp_stats['persistent_bytes'] / 2**20:.1f} MB; the FSDP "
+          f"rule at 2 / 4 / 8 ranks: "
+          + " / ".join(f"{summary[n]['per_rank_bytes'] / 2**20:.1f} MB"
+                       for n in (2, 4, 8)), flush=True)
+    for w, gap in gaps.items():
+        if not gap <= WORLD1_YARD_FACTOR * yard:
+            raise SystemExit(f"[dist] the {w} wrapper at world 1 moved the "
+                             f"losses by {gap:.3e}, beyond "
+                             f"{WORLD1_YARD_FACTOR:g}x the bare step's own "
+                             f"{yard:.3e}")
+
+    # ---- 2. Two ranks sharing the card over gloo, full width. ----
+    # Each run against world 1: its losses within DIST_LOSS_RTOL, its
+    # weights within DIST_WEIGHT_RTOL of the world-1 DP run's, its two
+    # ranks' weights equal bit for bit. The control (the gradient
+    # all-reduce left out) must fail the weight gate.
+    two = {}
+    for mode, more in (("dp", ()), ("fsdp", ("--fsdp",)),
+                       ("control_no_allreduce", ())):
+        out = work / f"gloo_{mode}"
+        try:
+            hist, stats = _dist_worker(
+                out, 2, "--full", "--dist_backend", "gloo", "--steps",
+                str(DIST_STEPS), *more, no_allreduce=mode.startswith(
+                    "control"))
+        except RuntimeError as err:
+            text = str(err)
+            if mode != "fsdp" or "gloo" not in text.lower() or not any(
+                    k in text for k in ("not supported", "unsupported",
+                                        "NotImplemented", "does not support")):
+                raise
+            print(f"[dist] gloo does not take CUDA tensors for "
+                  f"all_gather_into_tensor / reduce_scatter_tensor: "
+                  f"{text.splitlines()[-1]}; FSDP at 2 ranks waits for NCCL "
+                  f"(two cards)", flush=True)
+            two[mode] = {"unsupported": text[-2000:]}
+            continue
+        rank_w = _rank_weights(out, 2)
+        shutil.rmtree(out)
+        gaps = _loss_gaps(hist[0], runs["bare"])
+        two[mode] = {
+            "gap": max(gaps), "gaps_per_step": gaps,
+            "weight_deviation": _weight_deviation(
+                rank_w[0], weights["dp"], weights["init"]),
+            "replicas_equal": all(np.array_equal(rank_w[0][k], rank_w[1][k])
+                                  for k in rank_w[0]),
+            "ms": [_steady_ms(h) for h in hist],
+            "comm_ms_per_step": [s["comm_ms_per_step"] for s in stats],
+            "launches": [s["launches"] for s in stats]}
+        if mode == "fsdp":
+            two[mode]["persistent_bytes"] = [s["persistent_bytes"]
+                                             for s in stats]
+        del rank_w
+    report["two_ranks_gloo"] = two
+    for mode, r in two.items():
+        if "gap" not in r:
+            continue
+        print(f"[dist] 2 ranks on one card over gloo, {mode}, full width "
+              f"(16 rows each): ms/step per rank "
+              f"{', '.join(f'{x:.2f}' for x in r['ms'])}; collectives "
+              f"{', '.join(f'{x:.2f}' for x in r['comm_ms_per_step'])} ms "
+              f"per step (141.6 MB of f32 gradients through the host); "
+              f"relative loss gap to world 1 per step "
+              f"{', '.join(f'{g:.3e}' for g in r['gaps_per_step'])} (tol "
+              f"{DIST_LOSS_RTOL:g}); weight deviation from world 1 "
+              f"{r['weight_deviation']:.3e} (tol {DIST_WEIGHT_RTOL:g}); "
+              f"ranks' weights equal {r['replicas_equal']}; launches per "
+              f"rank {r['launches']}"
+              + (f"; state held per rank "
+                 f"{[round(b / 2**20, 1) for b in r['persistent_bytes']]} MB"
+                 if "persistent_bytes" in r else "")
+              + f" — two ranks share one card: correctness and collective "
+              f"cost, not scaling ({card})", flush=True)
+        if mode.startswith("control"):
+            print(f"[dist] the control is caught by the loss gate "
+                  f"{r['gap'] > DIST_LOSS_RTOL}, by the weight gate "
+                  f"{r['weight_deviation'] > DIST_WEIGHT_RTOL}, by the "
+                  f"ranks' equality {not r['replicas_equal']}", flush=True)
+            if not r["weight_deviation"] > DIST_WEIGHT_RTOL:
+                raise SystemExit(f"[dist] the weight gate "
+                                 f"({DIST_WEIGHT_RTOL:g}) does not catch "
+                                 f"ranks that skip the gradient all-reduce: "
+                                 f"{r['weight_deviation']:.3e}")
+            continue
+        if not (r["gap"] <= DIST_LOSS_RTOL
+                and r["weight_deviation"] <= DIST_WEIGHT_RTOL
+                and r["replicas_equal"]):
+            raise SystemExit(f"[dist] 2 ranks ({mode}) left world 1: loss "
+                             f"gap {r['gap']:.3e}, weight deviation "
+                             f"{r['weight_deviation']:.3e}, ranks' weights "
+                             f"equal {r['replicas_equal']}")
+        missing = [k for rank in r["launches"] for k in counters
+                   if rank[k] <= 0]
+        if missing:
+            raise SystemExit(f"[dist] kernels never launched on a rank: "
+                             f"{missing}")
+
+    # ---- 3. NCCL at 2 ranks: two cards only. ----
+    if torch.cuda.device_count() >= 2:
+        hist_n, stats_n = _dist_worker(work / "nccl_dp", 2, "--full",
+                                       "--steps", str(DIST_STEPS),
+                                       "--no-save_state")
+        report["two_ranks_nccl"] = {
+            "gap": _loss_gap(hist_n[0], runs["bare"]),
+            "ms": [_steady_ms(h) for h in hist_n],
+            "comm_ms_per_step": [s["comm_ms_per_step"] for s in stats_n]}
+        print(f"[dist] 2 ranks over NCCL on 2 cards: "
+              f"{report['two_ranks_nccl']} ({card})", flush=True)
+    else:
+        report["two_ranks_nccl"] = None
+        print("[dist] NCCL at 2 ranks waits for a machine with two cards",
+              flush=True)
+
+    # ---- 4. Fleet recovery on the card: a crash of rank 1 before step 3
+    # recovered elastically on one rank. ----
+    base = ["--num_processes", "2", "--steps", "6", "--ckpt_every", "2",
+            "--device", "cuda", "--dist_backend", "gloo", "--timeout_s",
+            "300", "--attempt_timeout", "600", "--deterministic"]
+    t0 = time.perf_counter()
+    run_dir = work / "fleet_elastic"
+    os.environ["STE_MP_CRASH"] = f"3:1:{run_dir / 'crash.flag'}"
+    try:
+        fleet = FleetLauncher(parse_args(
+            base + ["--run_dir", str(run_dir), "--elastic"])).run()
+    finally:
+        os.environ.pop("STE_MP_CRASH", None)
+    # The elastic run's schedule without the crash: its two ranks' step-2
+    # recovery point (what an uninterrupted two-rank run writes there, bit
+    # for bit: --deterministic) continued by one rank, here, with the
+    # worker's --deterministic settings (a rank of one sums nothing: the
+    # same arithmetic as no group).
+    saved = (dict(os.environ), torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.are_deterministic_algorithms_enabled())
+    deterministic()
+    try:
+        cfg_t, models_t = tiny_setup("cuda")
+        tree, _, _ = run_steps(cfg_t, models_t, 4, start_step=2,
+                               restore_ckpt=run_dir / "recovery" /
+                               "step_2.pt")
+        want = flatten_state(tree)
+        del models_t, tree
+    finally:
+        os.environ.clear()
+        os.environ.update(saved[0])
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved[1:5]
+        torch.use_deterministic_algorithms(saved[5])
+    fleet_s = time.perf_counter() - t0
+    got = dict(np.load(Path(fleet["final_out"]) / "state_p0.npz"))
+    if set(got) != set(want):
+        raise SystemExit("[dist] fleet: the elastic run's state keys differ")
+    worst = max(float(np.max(np.abs(got[k] - want[k])
+                             / (2e-6 + 2e-5 * np.abs(want[k]))))
+                for k in want)
+    report["fleet"] = {"summary": fleet, "seconds": fleet_s,
+                       "worst_over_tolerance": worst}
+    print(f"[dist] fleet on the card (2 gloo ranks, tiny, deterministic, "
+          f"6 steps, a recovery point every 2): rank 1 killed before step 3, "
+          f"recovered from {fleet['recovered_from']} on world sizes "
+          f"{fleet['world_sizes']}; final state against its step-2 point "
+          f"continued on one rank at {worst:.3f} of rtol 2e-5 / atol 2e-6; "
+          f"attempts {fleet['attempt_s']} s, {fleet_s:.1f} s in all "
+          f"({card})", flush=True)
+    if (fleet["recovered_from"] != [2] or fleet["world_sizes"] != [2, 1]
+            or not worst <= 1.0):
+        raise SystemExit(f"[dist] fleet recovery failed: {report['fleet']}")
+
+    # ---- 5. The trainer CLIs at world 2 (gloo, one card). ----
+    trainer_work = ROOT / "build" / "chip_smoke_trainer"
+    with open(ROOT / "configs" / "ste_gan_base_gantts.yaml") as fp:
+        base_cfg = yaml.safe_load(fp)
+    base_cfg["train"].update(interval_log=1, interval_valid=3,
+                             interval_save=3, save_last_epoch_interval=1,
+                             interval_sample=10_000)
+    paths = {}
+    for name in ("two", "resume"):
+        base_cfg["model_base_dir"] = str(work / f"gan_{name}")
+        paths[name] = work / f"gan_{name}.yaml"
+        paths[name].write_text(yaml.safe_dump(base_cfg))
+
+    def gan_argv(name, max_steps, *more):
+        return ["--config", str(paths[name]), "--data",
+                str(trainer_work / "data.yaml"), "--emg_enc_cfg",
+                str(ROOT / "configs" / "emg_encoder" /
+                    "conv_transformer.yaml"),
+                "--max_steps", str(max_steps), *more]
+
+    t0 = time.perf_counter()
+    run_ranks([sys.executable, "-m", "ste_gan_torch.train.train_gan",
+               *gan_argv("two", 5, "--dist_backend", "gloo",
+                         "--dist_timeout_s", "300")],
+              2, work / "gan_two_logs", 900, env=_dist_env())
+    gan_s = time.perf_counter() - t0
+    run_name = Path(trainer_run).name
+    gan_run = work / "gan_two" / run_name
+    for entry in (".done", "checkpoint-final", "checkpoint-00000003",
+                  "best", "metrics.jsonl"):
+        if not (gan_run / entry).exists():
+            raise SystemExit(f"[dist] 2-rank trainer run lacks {entry}")
+    logged = [json.loads(line) for line in
+              (gan_run / "metrics.jsonl").read_text().splitlines()]
+    g_losses = {r["step"]: r["value"] for r in logged
+                if r["tag"] == "train_loss/generator"}
+    gan_launches = _logged_launches(gan_run / "log.txt")
+    messages = []
+
+    class Capture(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    capture = Capture()
+    logging.getLogger().addHandler(capture)
+    try:
+        t0 = time.perf_counter()
+        train_gan.main(train_gan.parse_args(gan_argv(
+            "resume", 7, "--checkpoint", str(gan_run / "checkpoint-final"))))
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+    finally:
+        logging.getLogger().removeHandler(capture)
+    resumed = [m for m in messages if m.startswith("Restored train state")]
+    resume_run = work / "gan_resume" / run_name
+    r_losses = {json.loads(line)["step"]: json.loads(line)["value"]
+                for line in (resume_run / "metrics.jsonl").read_text()
+                .splitlines()
+                if json.loads(line)["tag"] == "train_loss/generator"}
+    values = list(g_losses.values()) + list(r_losses.values())
+    if (sorted(g_losses) != list(range(6)) or sorted(r_losses) != [6, 7]
+            or not resumed or "at step 6 " not in resumed[0]
+            or any(v != v or abs(v) == float("inf") for v in values)):
+        raise SystemExit(f"[dist] the 2-rank trainer or its single-device "
+                         f"resume went wrong: {g_losses}, {r_losses}, "
+                         f"{resumed}")
+    missing = [k for k in counters if gan_launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"[dist] the 2-rank trainer's rank 0 never "
+                         f"launched {missing}")
+
+    enc_data = ROOT / "build" / "chip_smoke_encoder" / "synthetic.yaml"
+    t0 = time.perf_counter()
+    run_ranks([sys.executable, "-m", "ste_gan_torch.train.encoder",
+               "--config", str(ROOT / "configs" / "ste_gan_base_gantts.yaml"),
+               "--data", str(enc_data), "--emg_enc_cfg",
+               str(ROOT / "configs" / "emg_encoder" / "conv_transformer.yaml"),
+               "--exp_dir", str(work / "enc_two"), "--num_epochs", "1",
+               "--dist_backend", "gloo", "--dist_timeout_s", "300"],
+              2, work / "enc_two_logs", 900, env=_dist_env())
+    enc_s = time.perf_counter() - t0
+    enc_run = next((work / "enc_two").iterdir())
+    enc_logged = [json.loads(line) for line in
+                  (enc_run / "metrics.jsonl").read_text().splitlines()]
+    enc_losses = [r["value"] for r in enc_logged
+                  if r["tag"] in ("train/loss", "val/loss")]
+    enc_launches = _logged_launches(enc_run / "log.txt")
+    if (not (enc_run / ".done").exists() or not enc_losses
+            or any(v != v or abs(v) == float("inf") for v in enc_losses)
+            or enc_launches["fused_adamw"] <= 0):
+        raise SystemExit(f"[dist] the 2-rank encoder trainer went wrong: "
+                         f"{enc_losses}, {enc_launches}")
+    report["trainers"] = {
+        "gan_two_ranks_s": gan_s, "gan_losses": g_losses,
+        "gan_rank0_launches": gan_launches, "resume_s": resume_s,
+        "resumed_losses": r_losses, "encoder_two_ranks_s": enc_s,
+        "encoder_losses": enc_losses, "encoder_rank0_launches": enc_launches}
+    print(f"[dist] train_gan at 2 gloo ranks: steps 0-5 in {gan_s:.1f} s "
+          f"(G {', '.join(f'{g_losses[s]:.3f}' for s in sorted(g_losses))}), "
+          f"rank 0 launches {gan_launches}; resumed by the single-device "
+          f"trainer at step 6 to 7 in {resume_s:.1f} s; train.encoder at 2 "
+          f"gloo ranks, 1 voiced epoch in {enc_s:.1f} s, rank 0 launches "
+          f"{enc_launches} ({card})", flush=True)
+
+    # ---- 6. Scale-out synthesis: one card named twice. ----
+    torch.backends.cudnn.allow_tf32 = False
+    cfg_s = Config()
+    sd = init_emg_generator(cfg_s, torch.float32,
+                            torch.Generator().manual_seed(0)).state_dict()
+    one = EMGSynthesizer.from_config(cfg_s, sd, bucket=64, device="cuda")
+    twice = EMGSynthesizer.from_config(cfg_s, sd, bucket=64,
+                                       devices=["cuda:0", "cuda:0"])
+    rng = np.random.default_rng(12)
+    feats = torch.from_numpy(rng.normal(size=(16, 64, 256)).astype(
+        np.float32)).cuda()
+    sess = torch.from_numpy(rng.integers(0, cfg_s.data.num_emg_sessions,
+                                         16)).cuda()
+    want = one.synthesize_batch(feats, sess)
+    got = twice.synthesize_batch(feats, sess)
+    rel = float((got - want).abs().max() / want.abs().max())
+    ms_one = cuda_time(lambda: one.synthesize_batch(feats, sess))
+    ms_two = cuda_time(lambda: twice.synthesize_batch(feats, sess))
+    report["synthesis"] = {"rel": rel, "ms_one": ms_one, "ms_two": ms_two}
+    print(f"[dist] EMGSynthesizer(devices=[cuda:0, cuda:0]) at full width, "
+          f"16 x 64 frames: within {rel:.3e} of one device (tol "
+          f"{INFER_TOL:g}, TF32 off); {ms_two:.3f} ms per call against "
+          f"{ms_one:.3f} ms on one device (two replicas share one card) "
+          f"({card})", flush=True)
+    if not rel <= INFER_TOL:
+        raise SystemExit("[dist] the two-replica synthesizer differs")
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"[dist] phase took {report['seconds']:.1f} s", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -2235,7 +2880,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
-    print(f"[card] {card}", flush=True)
+    print(f"[card] {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}", flush=True)
     build_s = build.build_all()
     print(f"[build] kernels built in {build_s:.1f} s", flush=True)
     for name, log in build.build_logs.items():
@@ -2360,6 +3006,11 @@ def main() -> int:
             torch, tenc, fa, dtw, load_config, init_emg_encoder, Config,
             card, report["encoder_step"], report["encoder_trainer"],
             report["trainer"]["run_dir"])
+
+        # ---- Data parallelism and FSDP over ranks, the launcher, the
+        # trainers at 2 ranks and scale-out synthesis, on the one card. ----
+        report["dist"] = check_dist(torch, card, counters,
+                                    report["trainer"]["run_dir"])
     finally:
         for work in ("chip_smoke_trainer", "chip_smoke_encoder"):
             shutil.rmtree(ROOT / "build" / work, ignore_errors=True)
@@ -2379,10 +3030,30 @@ def main() -> int:
                                        "conv_dw_reduce_kernel",
                     "fused_adamw": "adamw_multi_tensor_kernel"}
     summaries = dict(conv_summary, fused_adamw=adamw_summary)
+    dist_report = report["dist"]
+    fsdp_two = dist_report["two_ranks_gloo"]["fsdp"]
+
+    def dist_launches(name):
+        """Launches of ``name`` on the [dist] paths (per rank where there
+        are two)."""
+        return {
+            "world1_nccl_dp_and_fsdp": dist_report["world1"]["launches"][name],
+            "two_ranks_gloo_dp": [r[name] for r in dist_report[
+                "two_ranks_gloo"]["dp"]["launches"]],
+            "two_ranks_gloo_fsdp": ([r[name] for r in fsdp_two["launches"]]
+                                    if "launches" in fsdp_two else None),
+            "train_gan_two_ranks_rank0": dist_report["trainers"][
+                "gan_rank0_launches"][name],
+            "train_encoder_two_ranks_rank0": dist_report["trainers"][
+                "encoder_rank0_launches"][name]}
+
+    dist_held = dist_report["kernels_at_dist_shapes"]["summary"]
     kernels = [{"name": name, "route": "cuda", "source": source[name],
                 "kernel": cuda_kernels[name], "replaces": replaces[name],
                 "launches": launches[name],
                 "trainer_launches": report["trainer"]["launches"][name],
+                "dist_launches": dist_launches(name),
+                "dist_shapes_held": dist_held[name],
                 **summaries[name]}
                for name in counters]
     enc_adamw = report["encoder_step"]["adamw"]
@@ -2404,6 +3075,8 @@ def main() -> int:
             "launches_per_step"]["dtw"],
         "evaluate_launches": report["evaluate"]["encoder_silent"][
             "dtw_launches"],
+        "dist_launches": {"encoder_two_ranks_voiced_rank0": dist_report[
+            "trainers"]["encoder_rank0_launches"]["dtw"]},
         **dtw_summary})
     kernels.append({
         "name": "filtfilt", "route": "cuda", "source": "ste_gan_torch/csrc/iir.cu",
@@ -2411,6 +3084,7 @@ def main() -> int:
         "replaces": "ste_gan_tpu/etl/emg_dsp.py:33",
         "launches": report["prep"]["filtfilt_launches"],
         "launches_on": "the [prep] run (clean_audio, then prep_data)",
+        "dist_launches": {},
         **iir_summary})
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

@@ -11,7 +11,9 @@ all built with ``nvcc`` at first use and loaded with ``ctypes``
 The port imports ``torch``, ``numpy`` and ``yaml`` and nothing of JAX or of
 ``ste_gan_tpu``. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; on a CPU tensor each kernel wrapper runs its plain PyTorch
-version, on a CUDA tensor it launches the kernel or raises.
+version, on a CUDA tensor it launches the kernel or raises. Over several
+ranks, one process each, ``parallel/`` holds data parallelism, FSDP, the
+multi-rank worker and the fleet launcher.
 """
 from ste_gan_torch import constants  # noqa: F401
 

@@ -111,27 +111,17 @@ class TrainConfig:
     adam_b1: float = C.OPTIMIZER_BETAS[0]
     adam_b2: float = C.OPTIMIZER_BETAS[1]
     lr_decay_gamma: float = C.LR_DECAY_GAMMA
-    #: Size of the data-parallel mesh axis; <=0 means "all local devices".
+    #: Data-parallel rank count, one process per rank (``torchrun`` or
+    #: ``python -m ste_gan_torch.parallel.launch``): above 0 it must equal
+    #: the ranks launched; 0 or below takes them all.
     data_parallel: int = -1
-    #: Size of the tensor-parallel ("model") mesh axis (1 = off). When >1
-    #: the trainer builds a 2-D (data, model) mesh and places the train
-    #: state under the output-channel sharding rule
-    #: (parallel/tensor_parallel.py) — parameters and AdamW moments split
-    #: into per-device slabs, the batch shards over 'data' only, and GSPMD
-    #: partitions the unchanged fused step (trajectory-equal to 1-D mode;
-    #: tests/test_tensor_parallel.py). Requires data_parallel*model_parallel
-    #: devices. Useful when per-device memory, not throughput, binds.
+    #: Tensor-parallel size (1 = off): not ported yet, above 1 raises
+    #: (``ROADMAP.md`` §1).
     model_parallel: int = 1
-    #: Fully-sharded data parallelism (ZeRO-3 analogue; parallel/fsdp.py).
-    #: When True the persistent train state — parameters, BOTH AdamW moment
-    #: trees, spectral-norm vectors — is stored sharded over the ``data``
-    #: mesh axis (largest evenly-divisible dimension per leaf); the fused
-    #: step all-gathers the compute trees at entry and re-scatters the
-    #: updated state, so between steps per-device state memory is ~1/data
-    #: of the replicated layout. Trajectory-equal to replicated DP
-    #: (tests/test_fsdp.py); composes with model_parallel > 1 (hybrid
-    #: FSDP x TP). Useful when model+optimizer state, not batch math,
-    #: binds per-device memory.
+    #: Store the persistent train state (parameters, both AdamW moment
+    #: sets, the generator EMA) sharded over the ranks
+    #: (``parallel/fsdp.py``): per-rank state ~1/ranks of the replicated
+    #: one, the same updates as replicated data parallelism.
     fsdp: bool = False
     #: Gradient accumulation (1 = off). K > 1 splits each global batch
     #: into K equal microbatches scanned sequentially with ONE dual AdamW
@@ -419,8 +409,8 @@ def add_eval_hyperparams_to_parser(parser: argparse.ArgumentParser) -> argparse.
                         help="Maximum training steps (<0 keeps config value).")
     parser.add_argument("--model_parallel", type=int, default=-1,
                         help="Tensor-parallel size (<=0 keeps the config "
-                             "value); the port trains on one device and "
-                             "refuses a value above 1.")
+                             "value); tensor parallelism is not ported "
+                             "yet, a value above 1 raises.")
     parser.add_argument("--grad_accum", type=int, default=-1,
                         help="Split each batch into K sequential "
                              "microbatches with one optimizer update — "
@@ -434,9 +424,9 @@ def add_eval_hyperparams_to_parser(parser: argparse.ArgumentParser) -> argparse.
                              "math, less activation memory (<0 keeps the "
                              "config value).")
     parser.add_argument("--fsdp", type=int, default=-1,
-                        help="1 = fully sharded state (<0 keeps the config "
-                             "value); the port trains on one device and "
-                             "refuses 1.")
+                        help="1 = the train state stored sharded over the "
+                             "ranks (parallel/fsdp.py; <0 keeps the config "
+                             "value).")
     return parser
 
 

@@ -264,7 +264,9 @@ def loaders(
     return train_loader, valid_loader, test_loader
 
 
-def loaders_via_config(cfg):
+def loaders_via_config(cfg, process_index: int = 0, process_count: int = 1):
+    """:func:`loaders` with the config's settings; ``process_index`` /
+    ``process_count`` give each rank its slice of every train batch."""
     return loaders(
         data_root=Path(cfg.data.dataset_root),
         strict=cfg.data.strict,
@@ -272,4 +274,6 @@ def loaders_via_config(cfg):
         train_emg_length=cfg.train.chunk_size,
         batch_size=cfg.train.batch_size,
         seed=cfg.train.random_seed,
+        process_index=process_index,
+        process_count=process_count,
     )

@@ -21,13 +21,18 @@ On the card "exact" means equal to f32 reduction noise: cuDNN may pick
 another algorithm for another length, and f32 convs run in TF32 unless
 ``torch.backends.cudnn.allow_tf32`` is off.
 
-Not ported: the ``mesh=`` scale-out (``ROADMAP.md`` §1 item 1) raises.
+Scale-out (the JAX package's ``mesh=``): ``EMGSynthesizer(...,
+devices=[...])`` holds one replica of the generator per device, pads a
+batch to a multiple of the device count with masked ``valid=0`` rows,
+splits the rows, launches the replicas in turn (CUDA launches return at
+once, so the cards work side by side) and merges and trims the outputs.
 """
 from __future__ import annotations
 
+import copy
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,13 +54,6 @@ def round_up(n: int, multiple: int) -> int:
     return -(-n // multiple) * multiple
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: the port runs inference on one device; scale-out "
-            "inference is not ported yet (ROADMAP.md §1 item 1)")
-
-
 def _synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -69,38 +67,42 @@ class EMGSynthesizer:
         generator: the generator module; moved to ``device``, eval mode.
         bucket: frame-axis bucket (1: every length as it is).
         device: ``cuda`` unless given.
-        mesh: not ported; raises when given.
+        devices: scale-out: one replica of the generator on each (a device
+            may be named twice); the first is ``device``, where inputs and
+            outputs live.
     """
 
     def __init__(self, generator: EMGGeneratorGanTTS, bucket: int = 1,
-                 device=None, mesh=None):
-        _no_mesh(mesh)
-        self.device = resolve_device(device)
+                 device=None, devices: Optional[Sequence] = None):
+        self.devices = ([resolve_device(d) for d in devices] if devices
+                        else [resolve_device(device)])
+        self.device = self.devices[0]
         self.generator = generator.to(self.device).eval().requires_grad_(False)
+        self.replicas = [self.generator] + [
+            copy.deepcopy(self.generator).to(d) for d in self.devices[1:]]
         self.bucket = max(1, int(bucket))
         self.upsample = generator.upsample_factor
 
     @classmethod
     def from_config(cls, cfg, state_dict, bucket: int = 1,
                     dtype=torch.float32, device=None,
-                    mesh=None) -> "EMGSynthesizer":
+                    devices: Optional[Sequence] = None) -> "EMGSynthesizer":
         """A generator of ``cfg`` computing in ``dtype`` (f32 unless asked
         otherwise, as the JAX package's) with the weights of
         ``state_dict`` (reference layout)."""
-        _no_mesh(mesh)
-        dev = resolve_device(device)
         # A generator of its own keeps the global RNG untouched; the
         # weights are replaced below.
         synth = cls(init_emg_generator(cfg, dtype,
                                        torch.Generator().manual_seed(0)),
-                    bucket, dev)
+                    bucket, device, devices)
         synth.set_params(state_dict)
         return synth
 
     def set_params(self, state_dict) -> None:
-        """Copy ``state_dict`` into the generator's own tensors, in place
+        """Copy ``state_dict`` into every replica's own tensors, in place
         (strict: the keys and shapes must match)."""
-        self.generator.load_state_dict(state_dict, strict=True)
+        for replica in self.replicas:
+            replica.load_state_dict(state_dict, strict=True)
 
     # ------------------------------------------------------------------
     def _index(self, values, rows: int) -> torch.Tensor:
@@ -115,8 +117,33 @@ class EMGSynthesizer:
 
     @torch.inference_mode()
     def _forward(self, feats, session_idx, mode_idx, num_valid):
-        return self.generator(feats, session_idx, mode_idx,
-                              num_valid_frames=num_valid)
+        if len(self.replicas) == 1:
+            return self.generator(feats, session_idx, mode_idx,
+                                  num_valid_frames=num_valid)
+        # Pad the rows to a multiple of the replicas with masked rows
+        # (valid 0), give each replica its share, merge and trim.
+        rows, n = feats.shape[0], len(self.replicas)
+        pad = (-rows) % n
+        if pad or (num_valid is not None and not torch.is_tensor(num_valid)):
+            t = feats.shape[1] if num_valid is None else num_valid
+            valid = torch.zeros((rows + pad,), dtype=torch.long,
+                                device=self.device)
+            valid[:rows] = torch.as_tensor(t, device=self.device)
+            num_valid = valid
+        if pad:
+            feats = F.pad(feats, (0, 0, 0, 0, 0, pad))
+            session_idx = F.pad(session_idx, (0, pad))
+            mode_idx = F.pad(mode_idx, (0, pad))
+        share = (rows + pad) // n
+        outs = []
+        for i, (replica, dev) in enumerate(zip(self.replicas, self.devices)):
+            part = slice(i * share, (i + 1) * share)
+            outs.append(replica(
+                feats[part].to(dev), session_idx[part].to(dev),
+                mode_idx[part].to(dev),
+                num_valid_frames=(None if num_valid is None
+                                  else num_valid[part].to(dev))))
+        return torch.cat([o.to(self.device) for o in outs])[:rows]
 
     def synthesize_batch(self, feats, session_idx,
                          mode_idx=None) -> torch.Tensor:

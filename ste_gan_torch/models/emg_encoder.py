@@ -12,6 +12,13 @@ the random left shift it is given, normalises with the batch statistics and
 updates the running ones with flax's semantics (see :func:`batch_norm`),
 and draws dropout from the ``torch.Generator`` it is given.
 
+Under data parallelism (``group``) each rank runs its rows of the global
+batch, and the forward computes what the JAX step computes over its whole
+mesh: BatchNorm statistics over the global batch (the sums and sums of
+squares are all-reduced, with a gradient), and dropout masks drawn in the
+global batch's shape from the shared generator and sliced to the rank's
+rows, so the masks are those of one device.
+
 Takes channel-last ``[B, T, C]`` EMG; module paths follow the reference
 state-dict layout (``conv_blocks.i``, ``transformer.layers.i``).
 ``moe_experts > 0`` gives every transformer layer a mixture-of-experts FFN
@@ -31,9 +38,11 @@ from ste_gan_torch import constants as C
 from ste_gan_torch.models.transformer import (
     TransformerEncoderLayer, linear, torch_linear)
 from ste_gan_torch.ops.conv import Conv
+from ste_gan_torch.parallel.mesh import all_reduce_sum, rank_and_size
 
 
-def batch_norm(x, bn: nn.BatchNorm1d, dtype, train: bool = False):
+def batch_norm(x, bn: nn.BatchNorm1d, dtype, train: bool = False,
+               group=None):
     """BatchNorm of ``x [B, C, T]`` computed in f32, result in ``dtype``.
 
     Eval: the running statistics. Train: flax's ``nn.BatchNorm(momentum=0.9)``,
@@ -41,11 +50,32 @@ def batch_norm(x, bn: nn.BatchNorm1d, dtype, train: bool = False):
     (batch, time), and move the running statistics by ``0.1`` towards the
     batch mean and the *biased* batch variance (torch would use the
     unbiased one), without gradient. The ``BatchNorm1d`` module holds the
-    parameters and buffers in the reference layout."""
+    parameters and buffers in the reference layout.
+
+    ``group`` (train mode): ``x`` is this rank's rows; the statistics are
+    those of every rank's rows together, from all-reduced f32 sums and
+    sums of squares (``E[x^2] - E[x]^2``, as flax computes them), and the
+    gradient flows through the all-reduce."""
     xf = x.float()
     if not train:
         return F.batch_norm(xf, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, False, 0.0, bn.eps).to(dtype)
+    if group is not None:
+        _, size = rank_and_size(group)
+        count = xf.shape[0] * xf.shape[2] * size
+        sums = all_reduce_sum(torch.stack([xf.sum(dim=(0, 2)),
+                                           (xf * xf).sum(dim=(0, 2))]),
+                              group)
+        mean = sums[0] / count
+        var = torch.clamp(sums[1] / count - mean * mean, min=0.0)
+        with torch.no_grad():
+            decay = 1.0 - bn.momentum
+            bn.running_mean.copy_(decay * bn.running_mean
+                                  + bn.momentum * mean)
+            bn.running_var.copy_(decay * bn.running_var + bn.momentum * var)
+        scale = bn.weight * torch.rsqrt(var + bn.eps)
+        return ((xf - mean[None, :, None]) * scale[None, :, None]
+                + bn.bias[None, :, None]).to(dtype)
     with torch.no_grad():
         var, mean = torch.var_mean(xf, dim=(0, 2), correction=0)
         decay = 1.0 - bn.momentum
@@ -74,13 +104,14 @@ class ResBlock(nn.Module):
                                       dtype=dtype, generator=generator)
             self.res_norm = nn.BatchNorm1d(features, eps=1e-5, momentum=0.1)
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, group=None):
         dt = self.dtype
-        h = F.relu(batch_norm(self.conv1(x), self.bn1, dt, train))
-        h = batch_norm(self.conv2(h), self.bn2, dt, train)
+        h = F.relu(batch_norm(self.conv1(x), self.bn1, dt, train, group))
+        h = batch_norm(self.conv2(h), self.bn2, dt, train, group)
         res = x
         if self.residual_path is not None:
-            res = batch_norm(self.residual_path(x), self.res_norm, dt, train)
+            res = batch_norm(self.residual_path(x), self.res_norm, dt, train,
+                             group)
         return F.relu(h + res)
 
 
@@ -121,7 +152,8 @@ class EMGEncoderTransformer(nn.Module):
         self.w_out = torch_linear(model_size, num_outs, generator)
         self.w_aux = torch_linear(model_size, num_aux_outs, generator)
 
-    def _frontend(self, x_raw, train: bool, shift: int) -> torch.Tensor:
+    def _frontend(self, x_raw, train: bool, shift: int,
+                  group=None) -> torch.Tensor:
         """Shift augmentation, strided ResBlocks and the input projection.
         ``shift = r`` moves every window left by ``r`` samples and fills its
         last ``r`` with zeros, as the JAX roll-and-mask does (reference
@@ -133,22 +165,25 @@ class EMGEncoderTransformer(nn.Module):
             x = F.pad(x[:, shift:], (0, 0, 0, shift))
         x = x.transpose(1, 2)
         for block in self.conv_blocks:
-            x = block(x, train)
+            x = block(x, train, group)
         return linear(x.transpose(1, 2), self.w_raw_in, dt)
 
     def forward(self, x_raw, train: bool = False, shift: int = 0,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None, group=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``train=True``: shift by ``shift``, batch statistics (running ones
         updated in place) and dropout drawn from ``generator`` (on the
-        input's device; required when dropout is on)."""
+        input's device; required when dropout is on). ``group`` (train
+        mode): ``x_raw`` is this rank's equal share of the global batch."""
         if train and self.dropout > 0 and generator is None:
             raise ValueError("a train-mode forward with dropout needs a "
                              "torch.Generator for its masks")
         dt = self.dtype
-        x = self._frontend(x_raw, train, shift)
+        rows = rank_and_size(group) if train and group is not None else None
+        x = self._frontend(x_raw, train, shift, group if train else None)
         for layer in self.transformer.layers:
-            x = layer(x, generator if train else None, train=train)
+            x = layer(x, generator if train else None, train=train,
+                      rows=rows)
         return (linear(x, self.w_out, dt).float(),
                 linear(x, self.w_aux, dt).float())
 

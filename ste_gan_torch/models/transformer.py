@@ -22,7 +22,7 @@ JAX layer does; dense layers are unchanged.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -51,14 +51,26 @@ def torch_linear(fan_in: int, fan_out: int, generator=None) -> nn.Linear:
     return layer
 
 
-def dropout(x, rate: float, generator: Optional[torch.Generator]):
+def dropout(x, rate: float, generator: Optional[torch.Generator],
+            rows: Optional[Tuple[int, int]] = None):
     """flax's ``nn.Dropout``: keep each value with probability ``1 - rate``
     and scale it by ``1/(1 - rate)``; masks drawn from ``generator``. The
-    identity when ``generator`` is None or ``rate`` is 0."""
+    identity when ``generator`` is None or ``rate`` is 0. ``rows = (rank,
+    ranks)``: ``x`` is a rank's equal share of the leading axis; the mask
+    is drawn for the whole axis and sliced, so every rank advances the
+    generator alike and the masks equal one device's."""
     if generator is None or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    if rows is None:
+        draw = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        rank, size = rows
+        n = x.shape[0]
+        draw = torch.rand((size * n,) + tuple(x.shape[1:]),
+                          generator=generator,
+                          device=x.device)[rank * n:(rank + 1) * n]
+    mask = draw < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -129,7 +141,8 @@ class MultiHeadAttention(nn.Module):
                                      d_qkv, dtype, generator)
             if relative_positional else None)
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                rows: Optional[Tuple[int, int]] = None):
         dt = self.dtype
         xc = x.to(dt)
         q = torch.einsum("btf,hfa->bhta", xc, self.w_q.to(dt))
@@ -140,7 +153,7 @@ class MultiHeadAttention(nn.Module):
         if self.relative_positional is not None:
             logits = logits + self.relative_positional(q).float()
         probs = dropout(torch.softmax(logits, dim=-1).to(dt),
-                        self.dropout_rate, generator)
+                        self.dropout_rate, generator, rows)
         o = torch.einsum("bhqk,bhka->bhqa", probs, v)
         return torch.einsum("bhta,haf->btf", o, self.w_o.to(dt))
 
@@ -173,15 +186,17 @@ class TransformerEncoderLayer(nn.Module):
         self.dropout_rate = dropout
 
     def forward(self, x, generator: Optional[torch.Generator] = None,
-                train: bool = False):
+                train: bool = False, rows: Optional[Tuple[int, int]] = None):
         """``generator`` given: training-mode dropout drawn from it.
-        ``train``: an MoE block records its load-balancing loss."""
+        ``train``: an MoE block records its load-balancing loss. ``rows``:
+        see :func:`dropout`."""
         dt, p = self.dtype, self.dropout_rate
-        attn = dropout(self.self_attn(x, generator), p, generator)
+        attn = dropout(self.self_attn(x, generator, rows), p, generator, rows)
         x = layer_norm(x + attn, self.norm1, dt)
         if self.moe_ffn is not None:
-            h = dropout(self.moe_ffn(x, train), p, generator)
+            h = dropout(self.moe_ffn(x, train), p, generator, rows)
         else:
-            h = dropout(F.relu(linear(x, self.linear1, dt)), p, generator)
-            h = dropout(linear(h, self.linear2, dt), p, generator)
+            h = dropout(F.relu(linear(x, self.linear1, dt)), p, generator,
+                        rows)
+            h = dropout(linear(h, self.linear2, dt), p, generator, rows)
         return layer_norm(x + h, self.norm2, dt)

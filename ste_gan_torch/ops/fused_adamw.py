@@ -79,15 +79,26 @@ def adamw_init(params: Sequence[torch.Tensor], lr: float, b1: float = 0.9,
                b2: float = 0.999, eps: float = 1e-8,
                weight_decay: float = 1e-2) -> AdamWState:
     params = list(params)
+    device = params[0].device
+    hyper = torch.tensor([lr, b1, b2, eps, weight_decay],
+                         dtype=torch.float32).to(device)
+    return adamw_state(params, [torch.zeros_like(p) for p in params],
+                       [torch.zeros_like(p) for p in params], hyper,
+                       torch.zeros((), dtype=torch.int32, device=device))
+
+
+def adamw_state(params: Sequence[torch.Tensor],
+                exp_avg: Sequence[torch.Tensor],
+                exp_avg_sq: Sequence[torch.Tensor], hyper: torch.Tensor,
+                count: torch.Tensor) -> AdamWState:
+    """The state over given tensors (and, on the card, the kernel's tables
+    of their addresses); ``parallel/fsdp.py`` builds it over a rank's flat
+    shards."""
+    params, exp_avg, exp_avg_sq = list(params), list(exp_avg), list(exp_avg_sq)
     for p in params:
         if p.dtype != torch.float32 or not p.is_contiguous():
             raise TypeError("AdamW takes contiguous f32 parameters")
     device = params[0].device
-    exp_avg = [torch.zeros_like(p) for p in params]
-    exp_avg_sq = [torch.zeros_like(p) for p in params]
-    hyper = torch.tensor([lr, b1, b2, eps, weight_decay],
-                         dtype=torch.float32).to(device)
-    count = torch.zeros((), dtype=torch.int32, device=device)
     tables = (_tables(params, exp_avg, exp_avg_sq, device)
               if device.type == "cuda" else None)
     return AdamWState(params, exp_avg, exp_avg_sq, hyper, count, tables)

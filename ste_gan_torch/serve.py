@@ -39,9 +39,12 @@ changes no served weight (``EMGSynthesizer.set_params`` copies in place and
 raises only after copying every key whose shape matched).
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``/``--device cpu``.
-Not ported: ``HostMemoryWatchdog`` and the exec restart
-(``--host_rss_restart_gb``), which work around a remote-TPU transport;
-``--data_parallel > 1`` raises (``ROADMAP.md`` §1 item 1).
+``--data_parallel N`` serves over the first N cards (checkpoint mode only,
+as in JAX): each coalesced batch's rows split over N replicas
+(``EMGSynthesizer(devices=...)``); fewer cards than N raises. On the CPU
+it runs N replicas there. Not ported: ``HostMemoryWatchdog`` and the exec
+restart (``--host_rss_restart_gb``), which work around a remote-TPU
+transport.
 """
 from __future__ import annotations
 
@@ -270,11 +273,20 @@ def load_served_generator(run_dir: Path, tag: str, device):
                                                                   state)
 
 
-def _no_data_parallel(data_parallel: int) -> None:
-    if data_parallel > 1:
-        raise NotImplementedError(
-            "--data_parallel > 1: the port serves on one device; scale-out "
-            "serving is not ported yet (ROADMAP.md §1 item 1)")
+def serving_devices(data_parallel: int, device) -> Optional[List]:
+    """The devices of ``--data_parallel N`` on ``device``'s kind: cards
+    0..N-1 (ValueError when fewer are present), or N times the CPU; None
+    for one device."""
+    if data_parallel <= 1:
+        return None
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return [dev] * data_parallel
+    cards = torch.cuda.device_count()
+    if cards < data_parallel:
+        raise ValueError(f"--data_parallel {data_parallel}: only {cards} "
+                         f"card(s) present")
+    return [torch.device("cuda", i) for i in range(data_parallel)]
 
 
 class SynthesisService:
@@ -325,14 +337,15 @@ class SynthesisService:
                      dtype=None) -> "SynthesisService":
         """The EMA weights of checkpoint ``tag`` of a port GAN run (the
         layout ``generate_emg`` reads), computing in ``dtype`` (the trained
-        compute dtype when None)."""
-        _no_data_parallel(data_parallel)
-        dev = resolve_device(device)
+        compute dtype when None); over ``data_parallel`` devices when above
+        1 (:func:`serving_devices`)."""
+        devices = serving_devices(data_parallel, device)
+        dev = devices[0] if devices else resolve_device(device)
         run_dir = Path(run_dir)
         cfg, trained, state_dict = load_served_generator(run_dir, tag, dev)
         synth = EMGSynthesizer.from_config(
             cfg, state_dict, dtype=trained if dtype is None else dtype,
-            device=dev)
+            device=dev, devices=devices)
         service = cls(synth, _load_vocab(
             run_dir / "session_idx_to_id.json") or {},
             max_batch=max_batch, max_wait_ms=max_wait_ms, bucket=bucket,
@@ -359,7 +372,7 @@ class SynthesisService:
         generator = copy.deepcopy(current.generator)
         generator.load_state_dict(state_dict, strict=True)
         return EMGSynthesizer(generator, bucket=current.bucket,
-                              device=current.device)
+                              devices=current.devices)
 
     def reload(self, run_dir=None, tag=None, artifact=None) -> Dict:
         """Swap the served weights without downtime.
@@ -706,7 +719,8 @@ def main(argv=None) -> None:
     ap.add_argument("--max_queue", type=int, default=64,
                     help="backpressure high-water mark (503 beyond it)")
     ap.add_argument("--data_parallel", type=int, default=0,
-                    help="> 1 raises: scale-out serving is not ported")
+                    help="serve over the first N cards (checkpoint mode "
+                         "only; fewer cards raises)")
     ap.add_argument("--device", type=str, default=None,
                     help="device to serve on (default cuda)")
     ap.add_argument("--decoder_artifact", type=Path, default=None,
@@ -723,8 +737,11 @@ def main(argv=None) -> None:
                          "(normally the artifact's meta file: the "
                          "encoder's relative-position distance + 1)")
     args = ap.parse_args(argv)
-    _no_data_parallel(args.data_parallel)
+    if args.artifact is not None and args.data_parallel > 1:
+        raise SystemExit("--data_parallel needs checkpoint mode (--run_dir): "
+                         "an exported artifact is a single-device program")
     dev = resolve_device(args.device)
+    devices = serving_devices(args.data_parallel, dev)
     if args.decoder_ckpt is not None and args.run_dir is None:
         raise SystemExit("--decoder_ckpt needs --run_dir (its config.yaml "
                          "gives the encoder's architecture); with "
@@ -734,8 +751,9 @@ def main(argv=None) -> None:
     if args.artifact is not None:
         service = SynthesisService.from_artifact(args.artifact, **opts)
     else:
-        service = SynthesisService.from_run_dir(args.run_dir, tag=args.tag,
-                                                **opts)
+        service = SynthesisService.from_run_dir(
+            args.run_dir, tag=args.tag, data_parallel=args.data_parallel,
+            **opts)
     decoder = None
     if args.decoder_artifact is not None:
         decoder = EMGDecoderService(args.decoder_artifact, bucket=args.bucket,
@@ -755,7 +773,8 @@ def main(argv=None) -> None:
     server = make_http_server(service, args.host, args.port, decoder=decoder)
     endpoints = ("POST /synthesize, /synthesize_stream, /reload"
                  + (", /decode" if decoder else ""))
-    print(f"serving speech->EMG on http://{args.host}:{args.port} on {dev} "
+    where = ", ".join(map(str, devices)) if devices else str(dev)
+    print(f"serving speech->EMG on http://{args.host}:{args.port} on {where} "
           f"({endpoints}; GET /healthz, /stats)", flush=True)
     try:
         server.serve_forever()

@@ -26,10 +26,21 @@ The random shift is drawn on the host from the train state's own numpy
 generator and dropout from its own ``torch.Generator`` on the device, so a
 step never waits for the card. Metrics stay on the card until the end of
 the epoch. Runs on ``cuda`` unless ``--device cpu`` is given; without a card
-it raises. One device only: meshes, tensor and pipeline parallelism are not
-ported (a ``--data_parallel``, ``--model_parallel`` or ``--pipeline_stages``
-above 1 raises, as does a ``--pipeline_microbatches`` above 0), nor are the
-host-fold training path (``--no-device_resident_data`` raises).
+it raises.
+
+Over N ranks, one process each (``torchrun --nproc_per_node N -m
+ste_gan_torch.train.encoder ...``; ``--data_parallel``, when above 0, must
+equal N): every rank holds the split on its device, folds the same global
+batch and runs its ``n_win / N`` windows (N must divide the fold's window
+count), and the step computes the JAX mesh's global quantities
+(:func:`make_encoder_train_step`). Validation splits the dev batches over
+the ranks and sums the results; rank 0 alone writes the logs and
+checkpoints. Not ported: tensor and pipeline parallelism
+(``--model_parallel``, ``--pipeline_stages`` above 1 and
+``--pipeline_microbatches`` above 0 raise), an MoE encoder over several
+ranks (its capacity and token dropping are global in JAX: expert
+parallelism), and the host-fold training path (``--no-device_resident_data``
+raises).
 
 ``--emg_enc_cfg configs/emg_encoder/conv_transformer_moe.yaml`` trains the
 mixture-of-experts encoder: the step adds ``MOE_AUX_WEIGHT`` (0.01) times
@@ -40,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import logging
 import os
 import sys
@@ -60,9 +72,11 @@ from ste_gan_torch.device import resolve_device
 from ste_gan_torch.losses.encoder_loss import PAIRWISE_EPS
 from ste_gan_torch.models.emg_encoder import (
     EMGEncoderTransformer, init_emg_encoder)
+from ste_gan_torch.ops import kernel_launches
 from ste_gan_torch.ops.dtw import dtw_alignment_batched
 from ste_gan_torch.ops.fused_adamw import (
     AdamWState, adamw_init, fused_adamw_, set_learning_rate)
+from ste_gan_torch.parallel import mesh
 from ste_gan_torch.train.encoder_data import (
     EncoderDeviceCorpus, SizeAwareSampler, fold_encoder_batch,
     windows_needed)
@@ -232,7 +246,8 @@ MOE_AUX_WEIGHT = 0.01
 
 
 def make_encoder_train_step(model: EMGEncoderTransformer, max_samples: int,
-                            silent_pred_frames: int = 0) -> Callable:
+                            silent_pred_frames: int = 0,
+                            group=None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``: a train-mode
     forward (shift, batch statistics, dropout), the voiced loss plus, when
     ``silent_pred_frames > 0``, the silent DTW loss over
@@ -240,14 +255,33 @@ def make_encoder_train_step(model: EMGEncoderTransformer, max_samples: int,
     ste_gan/emg_encoder/train.py:146), plus ``MOE_AUX_WEIGHT`` times the
     MoE blocks' load-balancing losses (an MoE encoder only), gradients and
     one AdamW launch. The batch must carry the silent slot fields on the
-    mixed path."""
+    mixed path.
+
+    ``group``: every rank passes the same folded global batch and runs the
+    forward on its equal share of the windows (BatchNorm statistics
+    global, dropout masks sliced from global ones, the shift shared). The
+    predictions are all-gathered, so every rank computes the unchanged
+    global loss (windows of one utterance may lie on two ranks, and the
+    segment sums, per-sample normalisers and DTW need them all); the
+    gather's backward keeps the rank's own rows, so the parameter gradients
+    are summed over the ranks."""
     params = list(model.parameters())
+    rank, size = mesh.rank_and_size(group)
+    if size > 1 and model.moe_experts > 0:
+        raise ValueError(
+            "an MoE encoder over several ranks (--data_parallel > 1): its "
+            "capacity and token dropping are global over the batch, which "
+            "needs expert parallelism, not ported yet (ROADMAP.md §1 item "
+            "3, expert_parallel.py)")
 
     def train_step(state: EncoderTrainState, batch: Batch
                    ) -> Tuple[EncoderTrainState, Dict[str, torch.Tensor]]:
         shift = random_shift(state.shift_rng)
-        su, ph = model(batch["emg_windows"], train=True, shift=shift,
-                       generator=state.dropout_rng)
+        windows = mesh.constrain_batch({"w": batch["emg_windows"]}, rank,
+                                       size)["w"]
+        su, ph = model(windows, train=True, shift=shift,
+                       generator=state.dropout_rng, group=group)
+        su, ph = mesh.gather_rows(su, group), mesh.gather_rows(ph, group)
         n, f, d = su.shape
         su_flat, ph_flat = su.reshape(n * f, d), ph.reshape(n * f, -1)
         loss, counters, _ = voiced_batch_loss(su_flat, ph_flat, batch,
@@ -259,7 +293,8 @@ def make_encoder_train_step(model: EMGEncoderTransformer, max_samples: int,
         aux = model.pop_moe_aux_loss()
         if aux is not None:
             loss = loss + MOE_AUX_WEIGHT * aux
-        grads = torch.autograd.grad(loss, params)
+        grads = mesh.allreduce_grads_(torch.autograd.grad(loss, params), group,
+                                      average=False)
         fused_adamw_(state.opt, grads)
         state.step += 1
         return state, {"loss": loss.detach(), **counters}
@@ -346,17 +381,23 @@ def _silent_dims(dataset: EMGDataset, indices) -> Dict[str, int]:
 
 def evaluate(eval_step: Callable, dataset: EMGDataset, n_win: int,
              max_samples: int, device: torch.device,
-             batch_size: int = EC.BATCH_SIZE
+             batch_size: int = EC.BATCH_SIZE, group=None
              ) -> Tuple[float, float, np.ndarray]:
     """Mean loss + phoneme accuracy + confusion over the dev set (reference
     test(); ste_gan/emg_encoder/train.py:37-63). Voiced samples take the
     voiced loss; the silent ones of a batch take the DTW-aligned loss on the
     predictions' device (the JAX package aligns them on the host), combined
-    as the reference does: sum over samples / samples in the batch."""
-    per_batch = []
+    as the reference does: sum over samples / samples in the batch.
+
+    ``group``: whole batches round robin over the ranks
+    (``mesh.round_robin``); one all-reduce of the per-batch results and one
+    of the confusion give every rank the single-device numbers."""
+    starts = range(0, len(dataset), batch_size)
+    table = torch.zeros((len(starts), 3), dtype=torch.float64, device=device)
     confusion = torch.zeros((C.NUM_PHONEMES, C.NUM_PHONEMES),
                             dtype=torch.int64, device=device)
-    for start in range(0, len(dataset), batch_size):
+    for b in mesh.round_robin(len(starts), group):
+        start = starts[b]
         indices = range(start, min(start + batch_size, len(dataset)))
         items = [dataset[i] for i in indices]
         silent = _silent_dims(dataset, indices)
@@ -374,9 +415,12 @@ def evaluate(eval_step: Callable, dataset: EMGDataset, n_win: int,
             loss = loss + s_loss / len(items)
             correct = correct + s_counts["num_correct_silent"]
             total = total + s_counts["num_frames_silent"]
-        per_batch.append(torch.stack([loss.double(), correct.double(),
-                                      total.double()]))
-    losses, correct, total = torch.stack(per_batch).cpu().numpy().T
+        table[b] = torch.stack([loss.double(), correct.double(),
+                                total.double()])
+    if group is not None:
+        torch.distributed.all_reduce(table, group=group)
+        torch.distributed.all_reduce(confusion, group=group)
+    losses, correct, total = table.cpu().numpy().T
     acc = float(correct.sum()) / max(float(total.sum()), 1.0)
     return float(np.mean(losses)), acc, confusion.cpu().numpy()
 
@@ -389,18 +433,19 @@ def _save_state_dict(state_dict: Dict[str, torch.Tensor], path: Path) -> None:
     os.replace(tmp, path)
 
 
-def _check_single_device(data_parallel: int, model_parallel: int,
-                         pipeline_stages: int,
-                         pipeline_microbatches: int = 0) -> None:
-    for name, value, most in (("data_parallel", data_parallel, 1),
-                              ("model_parallel", model_parallel, 1),
-                              ("pipeline_stages", pipeline_stages, 1),
-                              ("pipeline_microbatches", pipeline_microbatches,
-                               0)):
+def _check_parallel(data_parallel: int, model_parallel: int,
+                    pipeline_stages: int, pipeline_microbatches: int = 0,
+                    size: int = 1) -> None:
+    """Raise for what the port cannot run over ``size`` launched ranks."""
+    for name, value, most, item in (
+            ("model_parallel", model_parallel, 1, "1, tensor_parallel.py"),
+            ("pipeline_stages", pipeline_stages, 1, "2, pipeline_parallel.py"),
+            ("pipeline_microbatches", pipeline_microbatches, 0,
+             "2, pipeline_parallel.py")):
         if int(value) > most:
-            raise ValueError(f"{name}={value}: the port trains the encoder on "
-                             f"one device; meshes, tensor and pipeline "
-                             f"parallelism are not ported")
+            raise ValueError(f"{name}={value}: not ported yet (ROADMAP.md §1 "
+                             f"item {item})")
+    mesh.check_data_parallel(data_parallel, size)
 
 
 def train_encoder_model(cfg: Config, trainset: EMGDataset, devset: EMGDataset,
@@ -410,18 +455,21 @@ def train_encoder_model(cfg: Config, trainset: EMGDataset, devset: EMGDataset,
                         warmup_steps: int = EC.LEARNING_RATE_WARMUP,
                         save_interval_epochs: int = 1,
                         transfer_dtype: str = "float16",
-                        data_parallel: int = 1,
+                        data_parallel: int = -1,
                         model_parallel: int = 1,
                         pipeline_stages: int = 1,
-                        device=None,
+                        device=None, group=None,
                         ) -> Tuple[EMGEncoderTransformer, EncoderTrainState]:
     """Train the encoder; returns the model (last weights) and its state.
 
     The train split lives on the device (``EncoderDeviceCorpus``, stored at
     ``transfer_dtype``, "float16" | "float32") and each batch folds there
     from ``{rows, num_samples}`` descriptors; validation folds on the host
-    and runs in f32."""
-    _check_single_device(data_parallel, model_parallel, pipeline_stages)
+    and runs in f32. ``group``: the ranks of a data-parallel run (see the
+    module docstring)."""
+    rank, size = mesh.rank_and_size(group)
+    lead = rank == 0
+    _check_parallel(data_parallel, model_parallel, pipeline_stages, size=size)
     dev = resolve_device(device)
     output_directory = Path(output_directory)
     if len(trainset) == 0 or len(devset) == 0:
@@ -431,13 +479,14 @@ def train_encoder_model(cfg: Config, trainset: EMGDataset, devset: EMGDataset,
             "utterances. If this is the synthetic development corpus, "
             "(re)generate it with: python -m ste_gan_torch.data.synthetic "
             "--root data/synthetic")
-    writer = MetricLogger(output_directory)
     model = init_emg_encoder(
         cfg, torch.float32,
         torch.Generator().manual_seed(C.RANDOM_SEED)).to(dev)
+    mesh.replicate_module(model, group)
 
     window = EC.SEQ_LEN * 8
     n_win = max(1, -(-max_len // window))
+    mesh.check_divides(n_win, size, "fold's window count")
     # Eval batches can need more windows than the training budget.
     eval_lengths = sorted(devset.emg_lengths, reverse=True)[:EC.BATCH_SIZE]
     n_win_eval = max(n_win, windows_needed(eval_lengths, EC.SEQ_LEN))
@@ -463,7 +512,9 @@ def train_encoder_model(cfg: Config, trainset: EMGDataset, devset: EMGDataset,
 
     state = init_train_state(model)
     train_step = make_encoder_train_step(model, max_samples,
-                                         silent_pred_frames=silent_pred_frames)
+                                         silent_pred_frames=silent_pred_frames,
+                                         group=group)
+    writer = MetricLogger(output_directory) if lead else None
     eval_step = make_encoder_eval_step(model, max_samples)
     device_corpus = EncoderDeviceCorpus(
         trainset, float_dtype=(torch.float16 if transfer_dtype == "float16"
@@ -487,6 +538,8 @@ def train_encoder_model(cfg: Config, trainset: EMGDataset, devset: EMGDataset,
 
     def flush_checkpoints(force: bool = False) -> None:
         nonlocal best_dirty, last_dirty
+        if not lead:
+            return
         if best_dirty:
             _save_state_dict(best_snapshot,
                              output_directory / "best_val_loss_model.pt")
@@ -532,17 +585,19 @@ def train_encoder_model(cfg: Config, trainset: EMGDataset, devset: EMGDataset,
                         torch.stack(pending).tolist()):
                     step_i = batch_idx - len(pending) + i + 1
                     losses.append(loss_val)
-                    writer.scalar("train/loss", loss_val, step_i)
-                    writer.scalar("train_loss/phon_acc",
-                                  n_correct / max(n_frames, 1), step_i)
+                    if lead:
+                        writer.scalar("train/loss", loss_val, step_i)
+                        writer.scalar("train_loss/phon_acc",
+                                      n_correct / max(n_frames, 1), step_i)
             train_s = time.time() - epoch_start
 
             val_start = time.time()
             val, phoneme_acc, _ = evaluate(eval_step, devset, n_win_eval,
-                                           max_samples, dev)
+                                           max_samples, dev, group=group)
             val_s = time.time() - val_start
-            writer.scalar("val/loss", val, batch_idx)
-            writer.scalar("val/phon_acc", phoneme_acc, batch_idx)
+            if lead:
+                writer.scalar("val/loss", val, batch_idx)
+                writer.scalar("val/phon_acc", phoneme_acc, batch_idx)
             plateau.step(val)
 
             if val < best_val_loss:
@@ -561,9 +616,10 @@ def train_encoder_model(cfg: Config, trainset: EMGDataset, devset: EMGDataset,
                     and (epoch_idx + 1) % save_interval_epochs == 0):
                 flush_checkpoints()
             save_s = time.time() - save_start
-            writer.scalars({"perf/epoch_train_s": train_s,
-                            "perf/validation_s": val_s,
-                            "perf/save_s": save_s}, batch_idx)
+            if lead:
+                writer.scalars({"perf/epoch_train_s": train_s,
+                                "perf/validation_s": val_s,
+                                "perf/save_s": save_s}, batch_idx)
             logging.info(
                 "epoch %d: train loss %.4f | val loss %.4f | val phon acc "
                 "%.2f%% (train %.1fs, validation %.1fs, save %.1fs)",
@@ -580,7 +636,10 @@ def train_encoder_model(cfg: Config, trainset: EMGDataset, devset: EMGDataset,
 
         flush_checkpoints(force=True)
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
+        logging.info("Hand-kernel launches in this process: %s",
+                     json.dumps(kernel_launches()))
     return model, state
 
 
@@ -621,49 +680,63 @@ def create_output_dir_name(data_root: Path, emg_enc_name: str,
 
 
 def main(args: argparse.Namespace) -> None:
-    _check_single_device(args.data_parallel, args.model_parallel,
-                         args.pipeline_stages, args.pipeline_microbatches)
     if not args.device_resident_data:
         raise ValueError("--no-device_resident_data: the port trains from "
                          "the split on the device; the host-fold training "
                          "path is not ported")
-    cfg = load_config(args=args, override_with_eval_args=False)
-    emg_dataset_root = Path(cfg.data.dataset_root)
-    mode_name = "_mixed" if args.include_silent else "_voiced_only"
-    output_directory = Path(args.exp_dir) / create_output_dir_name(
-        emg_dataset_root, cfg.emg_encoder.type + mode_name, debug=args.debug)
-    output_directory.mkdir(exist_ok=True, parents=True)
-    print(f"Output directory: {output_directory}")
-
-    done_file = output_directory / ".done"
-    if done_file.exists():
-        logging.warning("Exiting: '.done' exists: %s", done_file.resolve())
-        sys.exit()
-
-    handler = setup_run_logging(output_directory)
+    rank, group, created = mesh.init_ranks(
+        args.dist_backend, args.dist_timeout_s, args.device,
+        args.dist_init_method)
+    lead = rank == 0
     try:
-        config_file = output_directory / "config.yaml"
-        if not config_file.exists():
-            cfg.save(config_file)
-        init_fn = (init_mixed_datasets if args.include_silent
-                   else init_voiced_datasets)
-        trainset, devset, _ = init_fn(emg_dataset_root)
-        logging.info("train/dev: %d / %d utterances", len(trainset),
-                     len(devset))
-        train_encoder_model(cfg, trainset, devset, output_directory,
-                            debug=args.debug, max_len=args.max_batch_len,
-                            num_epochs=args.num_epochs,
-                            warmup_steps=args.warmup_steps,
-                            save_interval_epochs=args.save_interval_epochs,
-                            transfer_dtype=args.transfer_dtype,
-                            data_parallel=args.data_parallel,
-                            model_parallel=args.model_parallel,
-                            pipeline_stages=args.pipeline_stages,
-                            device=args.device)
-        done_file.write_text("Done training.\n")
+        _check_parallel(args.data_parallel, args.model_parallel,
+                        args.pipeline_stages, args.pipeline_microbatches,
+                        size=mesh.rank_and_size(group)[1])
+        cfg = load_config(args=args, override_with_eval_args=False)
+        emg_dataset_root = Path(cfg.data.dataset_root)
+        mode_name = "_mixed" if args.include_silent else "_voiced_only"
+        output_directory = Path(args.exp_dir) / create_output_dir_name(
+            emg_dataset_root, cfg.emg_encoder.type + mode_name,
+            debug=args.debug)
+        done_file = output_directory / ".done"
+        finished = done_file.exists()
+        mesh.barrier(group)  # every rank has looked before rank 0 writes
+        if lead:
+            output_directory.mkdir(exist_ok=True, parents=True)
+            print(f"Output directory: {output_directory}")
+        if finished:
+            logging.warning("Exiting: '.done' exists: %s", done_file.resolve())
+            sys.exit()
+
+        handler = setup_run_logging(output_directory) if lead else None
+        try:
+            config_file = output_directory / "config.yaml"
+            if lead and not config_file.exists():
+                cfg.save(config_file)
+            init_fn = (init_mixed_datasets if args.include_silent
+                       else init_voiced_datasets)
+            trainset, devset, _ = init_fn(emg_dataset_root)
+            logging.info("train/dev: %d / %d utterances", len(trainset),
+                         len(devset))
+            train_encoder_model(cfg, trainset, devset, output_directory,
+                                debug=args.debug, max_len=args.max_batch_len,
+                                num_epochs=args.num_epochs,
+                                warmup_steps=args.warmup_steps,
+                                save_interval_epochs=args.save_interval_epochs,
+                                transfer_dtype=args.transfer_dtype,
+                                data_parallel=args.data_parallel,
+                                model_parallel=args.model_parallel,
+                                pipeline_stages=args.pipeline_stages,
+                                device=args.device, group=group)
+            if lead:
+                done_file.write_text("Done training.\n")
+        finally:
+            if handler is not None:
+                logging.getLogger().removeHandler(handler)
+                handler.close()
     finally:
-        logging.getLogger().removeHandler(handler)
-        handler.close()
+        if created and group is not None:
+            torch.distributed.destroy_process_group()
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -695,17 +768,18 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="Storage precision of the train split on the "
                              "device.")
     parser.add_argument("--data_parallel", type=int, default=-1,
-                        help="Data-parallel size; the port trains on one "
-                             "device and refuses a value above 1.")
+                        help="Data-parallel rank count; when above 0 it must "
+                             "equal the ranks launched (torchrun "
+                             "--nproc_per_node N).")
     parser.add_argument("--model_parallel", type=int, default=1,
-                        help="Tensor-parallel size; the port refuses a "
-                             "value above 1.")
+                        help="Tensor-parallel size; not ported yet, a value "
+                             "above 1 raises.")
     parser.add_argument("--pipeline_stages", type=int, default=1,
-                        help="Pipeline depth; the port refuses a value "
-                             "above 1.")
+                        help="Pipeline depth; not ported yet, a value above "
+                             "1 raises.")
     parser.add_argument("--pipeline_microbatches", type=int, default=0,
-                        help="Microbatches per pipelined step; the port does "
-                             "not pipeline and refuses a value above 0.")
+                        help="Microbatches per pipelined step; not ported "
+                             "yet, a value above 0 raises.")
     parser.add_argument("--save_interval_epochs", type=int, default=1,
                         help="Write the best/last checkpoints every N epochs "
                              "(best weights are snapshotted on the device at "
@@ -714,6 +788,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--device", type=str, default=None,
                         help="Device to train on (default cuda; 'cpu' runs "
                              "the kernels' plain versions).")
+    parser.add_argument("--dist_backend", type=str, default=None,
+                        help="Backend of a multi-rank run: nccl (default on "
+                             "cuda) or gloo (ranks may share a card).")
+    parser.add_argument("--dist_init_method", type=str, default=None,
+                        help="Rendezvous URL of a multi-rank run (default "
+                             "env://: MASTER_ADDR / MASTER_PORT).")
+    parser.add_argument("--dist_timeout_s", type=float,
+                        default=mesh.DEFAULT_TIMEOUT_S,
+                        help="Seconds a collective may wait before the run "
+                             "fails.")
     return parser.parse_args(argv)
 
 

@@ -34,6 +34,18 @@ On the card the grouped convs and both AdamW updates run the hand-written
 kernels (``ops/grouped_conv.py``, ``ops/fused_adamw.py``) whatever
 ``grouped_conv_impl``/``fused_optimizer``/``flat_optimizer`` say: the three
 JAX optimizer flavours share one update rule, and the port has one.
+
+Over several ranks (``group``; ``parallel/mesh.py``) every rank runs the
+step on its equal share of the global batch: the D and the G gradients are
+each averaged over the ranks just before their AdamW launch (two
+all-reduces per step, since G's losses go through the updated D), the loss
+metrics are averaged and the ``count/*`` values summed, so the step
+computes the global batch's update and metrics. The spectral-norm power
+iteration and the EMA need no collective: every rank holds the same
+weights. The gradients come from ``torch.autograd.grad``, which
+``DistributedDataParallel``'s hooks never see, so the all-reduce is
+explicit. ``update`` replaces the all-reduce-then-AdamW of one network:
+``parallel/fsdp.py`` passes a reduce-scatter onto sharded state.
 """
 from __future__ import annotations
 
@@ -59,7 +71,9 @@ from ste_gan_torch.models.emg_encoder import init_emg_encoder
 from ste_gan_torch.models.generator import init_emg_generator
 from ste_gan_torch.ops.conv import SNConv, moving_average
 from ste_gan_torch.ops.fused_adamw import (
-    AdamWState, adamw_init, fused_adamw_, set_learning_rate)
+    AdamWState, adamw_init, set_learning_rate)
+from ste_gan_torch.parallel.mesh import (
+    GradientAllReduce, allreduce_metrics, rank_and_size, round_robin)
 from ste_gan_torch.utils.metrics import (
     mean_error, phoneme_accuracy, phoneme_accuracy_no_silence)
 
@@ -184,9 +198,16 @@ def _split(batch: Dict[str, torch.Tensor], k: int
             for i in range(k)]
 
 
-def make_train_step(cfg: Config, models: GANModels) -> Callable:
+def make_train_step(cfg: Config, models: GANModels, group=None,
+                    update: Optional[Callable] = None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``; the models'
-    parameters and the state update in place."""
+    parameters and the state update in place.
+
+    ``group``: the ranks of a data-parallel run, each passing its share of
+    the global batch; the metrics come back reduced over them.
+    ``update(name, opt, grads)`` applies one network's gradients (``name``
+    ``"d"`` or ``"g"``); by default they are averaged over ``group``
+    (``parallel.mesh.GradientAllReduce``) and AdamW runs on them."""
     t = cfg.train
     use_adv = bool(t.loss_adversarial)
     use_fm = bool(t.loss_feat_match_error)
@@ -198,10 +219,12 @@ def make_train_step(cfg: Config, models: GANModels) -> Callable:
     ema_decay = float(train_setting(t, "generator_ema"))
     remat = bool(train_setting(t, "remat"))
     accum = max(1, int(train_setting(t, "grad_accum")))
-    if t.batch_size % accum:
+    update = update or GradientAllReduce(group)
+    _, size = rank_and_size(group)
+    if (t.batch_size // size) % accum:
         raise ValueError(
-            f"train.grad_accum={accum} must divide train.batch_size="
-            f"{t.batch_size}")
+            f"train.grad_accum={accum} must divide each rank's share of "
+            f"train.batch_size={t.batch_size} over {size} rank(s)")
     gen, disc, enc = models.generator, models.discriminator, models.encoder
     gen_params = list(gen.parameters())
     disc_params = list(disc.parameters())
@@ -301,12 +324,14 @@ def make_train_step(cfg: Config, models: GANModels) -> Callable:
         return loss_g.detach(), {k: v.detach() for k, v in aux.items()}, grads
 
     def ema_update(state: GANTrainState) -> None:
+        """The EMA of what the G optimizer updates: the generator's
+        parameters, or this rank's shard of them under FSDP."""
         if state.gen_ema is None:
             return
         d = _ema_decay(ema_decay, state.step)
         with torch.no_grad():
             torch._foreach_mul_(state.gen_ema, float(d))
-            torch._foreach_add_(state.gen_ema, gen_params,
+            torch._foreach_add_(state.gen_ema, state.opt_g.params,
                                 alpha=float(np.float32(1.0) - d))
 
     def train_step(state: GANTrainState, batch: Dict[str, torch.Tensor]
@@ -320,18 +345,18 @@ def make_train_step(cfg: Config, models: GANModels) -> Callable:
         # ---- Discriminator update on the detached fake. ----
         if use_adv:
             loss_d, grads_d = d_grads(fake, real)
-            fused_adamw_(state.opt_d, grads_d)
+            update("d", state.opt_d, grads_d)
             metrics["loss/discriminator"] = loss_d
 
         # ---- Generator losses through the updated, frozen discriminator.
         loss_g, aux, grads_g = g_grads(fake, real, batch)
-        fused_adamw_(state.opt_g, grads_g)
+        update("g", state.opt_g, grads_g)
 
         metrics["loss/generator"] = loss_g
         metrics.update(aux)
         ema_update(state)
         state.step += 1
-        return state, metrics
+        return state, allreduce_metrics(metrics, group)
 
     def train_step_accum(state: GANTrainState, batch: Dict[str, torch.Tensor]
                          ) -> Tuple[GANTrainState, Dict[str, torch.Tensor]]:
@@ -352,7 +377,7 @@ def make_train_step(cfg: Config, models: GANModels) -> Callable:
                     loss_sum = loss_sum + loss_d
                     torch._foreach_add_(grad_sum, grads)
             torch._foreach_div_(grad_sum, float(accum))
-            fused_adamw_(state.opt_d, grad_sum)
+            update("d", state.opt_d, grad_sum)
             metrics["loss/discriminator"] = loss_sum / accum
 
         # ---- G phase through the updated D: average grads, update once.
@@ -370,7 +395,7 @@ def make_train_step(cfg: Config, models: GANModels) -> Callable:
                 aux_sum = {k: aux_sum[k] + v for k, v in aux.items()}
                 torch._foreach_add_(grad_sum, grads)
         torch._foreach_div_(grad_sum, float(accum))
-        fused_adamw_(state.opt_g, grad_sum)
+        update("g", state.opt_g, grad_sum)
 
         metrics["loss/generator"] = loss_sum / accum
         # Loss terms are per-microbatch means -> average; counters are
@@ -379,7 +404,7 @@ def make_train_step(cfg: Config, models: GANModels) -> Callable:
                         for k, v in aux_sum.items()})
         ema_update(state)
         state.step += 1
-        return state, metrics
+        return state, allreduce_metrics(metrics, group)
 
     return train_step if accum == 1 else train_step_accum
 
@@ -421,16 +446,33 @@ def make_eval_step(cfg: Config, models: GANModels) -> Callable:
     return eval_step
 
 
-def validate(eval_step: Callable, loader, device) -> Dict[str, float]:
+def validate(eval_step: Callable, loader, device, group=None
+             ) -> Dict[str, float]:
     """The validation metrics over every batch of ``loader`` (one copy to
     the host at the end): the mean of each ``VAL_KEYS`` error and the
-    phoneme accuracies, in percent, from the summed counters."""
-    per_batch = [eval_step(to_device(batch, device)) for batch in loader]
-    errors = torch.stack([torch.stack([m[k] for k in VAL_KEYS])
-                          for m in per_batch]).double().tolist()
-    counters = dict(zip(COUNT_KEYS, torch.stack([
-        torch.stack([m[f"count/{k}"] for k in COUNT_KEYS])
-        for m in per_batch]).sum(0).tolist()))
+    phoneme accuracies, in percent, from the summed counters.
+
+    Over the ranks of ``group`` whole batches go round robin
+    (``mesh.round_robin``); the per-batch errors and counters are summed in
+    one all-reduce, so every rank gets the single-device metrics."""
+    import torch.distributed as dist
+
+    mine = set(round_robin(len(loader), group))
+    table = torch.zeros((len(loader), len(VAL_KEYS) + len(COUNT_KEYS)),
+                        dtype=torch.float64, device=device)
+    for b, batch in enumerate(loader):
+        if b not in mine:
+            continue
+        m = eval_step(to_device(batch, device))
+        table[b] = torch.stack([m[k].double() for k in VAL_KEYS]
+                               + [m[f"count/{k}"].double()
+                                  for k in COUNT_KEYS])
+    if group is not None:
+        dist.all_reduce(table, group=group)
+    table = table.cpu()
+    errors = table[:, :len(VAL_KEYS)].tolist()
+    counters = dict(zip(COUNT_KEYS, (int(round(c)) for c in table[
+        :, len(VAL_KEYS):].sum(0).tolist())))
     out = {key: mean_error([row[i] for row in errors])
            for i, key in enumerate(VAL_KEYS)}
     out["val/phoneme_accuracy_avg"] = phoneme_accuracy(

@@ -7,6 +7,8 @@ tolerance of tests/test_model_parity.py (rtol 1e-3, atol 2e-5) between the
 packages; within the port, the JAX package's own tests' tolerances
 (bucketed vs exact 1e-5, streaming interiors vs the full utterance 2e-4).
 """
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -242,8 +244,13 @@ def test_set_params_and_real_time_factor(gens):
     assert not np.allclose(before, after)
     rtf = synth.real_time_factor(num_frames=50, iters=2)
     assert isinstance(rtf, float) and rtf > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EMGSynthesizer(synth.generator, device="cpu", mesh=object())
+    # Scale-out (the JAX package's mesh=): set_params reaches every
+    # replica, and two replicas synthesise what one device does.
+    two = EMGSynthesizer(copy.deepcopy(synth.generator),
+                         devices=["cpu", "cpu"])
+    two.set_params(halved)
+    np.testing.assert_allclose(two.synthesize(feats, 0), after, rtol=1e-5,
+                               atol=1e-6)
 
 
 def tiny_cfg(corpus) -> TConfig:

@@ -39,6 +39,39 @@ def test_port_and_chip_smoke_import_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_parallel_modules_import_no_jax():
+    """The multi-rank layer in a fresh interpreter: the modules a rank and
+    the launcher import bring in no JAX, nothing of the JAX package."""
+    code = (
+        "import sys\n"
+        "import ste_gan_torch.parallel.mesh, ste_gan_torch.parallel.fsdp\n"
+        "import ste_gan_torch.parallel.multiprocess\n"
+        "import ste_gan_torch.parallel.launch\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'ste_gan_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_parallel_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """A rank runs on its card unless asked for the CPU, and NCCL is never
+    swapped for gloo (or the card for the CPU) by itself."""
+    from ste_gan_torch.parallel import mesh, multiprocess
+
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multiprocess.main(["--out", str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.init_distributed()
+    with pytest.raises(ValueError, match="nccl backend needs device cuda"):
+        mesh.init_distributed("nccl", 10, "cpu")
+    assert not torch.distributed.is_initialized()
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     from ste_gan_torch.train.gan import build_models, main_path
 

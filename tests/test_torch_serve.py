@@ -283,10 +283,16 @@ class TestService:
             _stop(server)
             service.close()
 
-    def test_main_refuses_data_parallel(self, tmp_path):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            serve.main(["--run_dir", str(tmp_path), "--data_parallel", "2",
-                        "--device", "cpu"])
+    def test_main_refuses_data_parallel(self, tmp_path, monkeypatch):
+        """--data_parallel beyond the cards present, or with an artifact
+        (a single-device program), raises before anything loads."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match="only 1 card"):
+            serve.main(["--run_dir", str(tmp_path), "--data_parallel", "2"])
+        with pytest.raises(SystemExit, match="checkpoint mode"):
+            serve.main(["--artifact", str(tmp_path / "g.pt2"),
+                        "--data_parallel", "2", "--device", "cpu"])
 
 
 class TestHTTP:

@@ -179,7 +179,10 @@ def test_device_resident_corpus_matches_the_host_pipeline(corpus, tmp_path):
 
 
 def test_single_device_only_and_no_silent_cpu(corpus, tmp_path, monkeypatch):
-    for field, value in (("model_parallel", 2), ("fsdp", True)):
+    """Tensor parallelism is not ported; a data-parallel size other than
+    the ranks launched (one here) raises; FSDP runs (its tests are in
+    tests/test_torch_trainer_dp.py)."""
+    for field, value in (("model_parallel", 2), ("data_parallel", 2)):
         cfg = tiny_cfg(TConfig(), corpus)
         setattr(cfg.train, field, value)
         with pytest.raises(ValueError, match=field):
