@@ -130,12 +130,30 @@ Phases, each fatal on failure:
    FSDP, against one rank by losses, weights and the ranks' equality, and
    a control without the gradient all-reduce that must fail; NCCL at two
    ranks with two cards only; the launcher's elastic recovery of a killed
-   rank against its recovery point continued on one rank; ``train_gan`` and ``train.encoder`` at two ranks
-   and the two-rank checkpoint resumed by the single-device trainer; and
-   a two-replica ``EMGSynthesizer`` on the card named twice. Two ranks on
-   one card check correctness and the collectives' cost, not scaling;
-15. the ``kernels`` JSON line (each kernel's launches on the main path, and
-   under ``dist_launches`` on the [dist] paths, per rank), the card line,
+   rank against its recovery point continued on one rank (the fleet runs
+   beside the trainer CLIs); ``train_gan`` and ``train.encoder`` at two
+   ranks and the two-rank checkpoint resumed by the single-device trainer;
+   and a two-replica ``EMGSynthesizer`` on the card named twice. Two ranks
+   on one card check correctness and the collectives' cost, not scaling;
+15. ``[tp]``: tensor parallelism on the one card (``check_tp_kernels``,
+   ``check_tp``): the grouped-conv kernels (forward, dX, dW; f32 and bf16)
+   at every per-rank geometry of the small and full discriminators at 2 and
+   4 model ranks and of the tiny one at 2, and AdamW over each rank's slabs
+   (GAN, tiny GAN and its hybrid-FSDP shard, encoder), against their plain
+   versions, all read from modules split by ``shard_module_``; the worker at ``(data, model) = (1, 2)`` at full width on two
+   gloo ranks (losses, weights and the ranks' equality against [dist]'s
+   world 1; ms/step, collectives and state bytes per rank); a control
+   without ``copy_to_model``'s backward sum that a gate must catch; the
+   tiny (1, 2) ``--fsdp`` and (2, 2) layouts against the tiny world 1;
+   ``train_gan`` handing its checkpoint from world 1 to (1, 2) and back,
+   against the same steps uninterrupted at world 1; one voiced epoch of
+   ``train.encoder --model_parallel 2`` against world 1's first epoch;
+16. ``[sp]``: ``python -m ste_gan_torch.parallel.sequence_parallel`` at
+   full width on 2 gloo ranks (500 and 1,500 frames) and 4 (200 frames,
+   three hops), each against one-device synthesis (TF32 off), ms per call;
+17. the ``kernels`` JSON line (each kernel's launches on the main path,
+   under ``dist_launches`` on the [dist] paths and under ``tp_launches`` on
+   the [tp] paths, per rank, with the shapes held in each), the card line,
    and the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, when no CUDA device is present or when
@@ -146,6 +164,7 @@ from __future__ import annotations
 
 import io
 import json
+import os
 import re
 import shutil
 import sys
@@ -2272,13 +2291,14 @@ def _dist_env():
 
 
 def _dist_worker(out: Path, world: int, *flags, timeout: float = 600,
-                 no_allreduce: bool = False):
+                 no_allreduce: bool = False, code: str = ""):
     """The multi-rank worker CLI on ``world`` ranks of this card (with
-    ``no_allreduce``, :data:`NO_ALLREDUCE_WORKER`); returns the per-rank
-    histories and stats."""
+    ``no_allreduce``, :data:`NO_ALLREDUCE_WORKER`; ``code``, that control
+    program instead); returns the per-rank histories and stats."""
     from ste_gan_torch.parallel.launch import run_ranks
 
-    entry = (["-c", NO_ALLREDUCE_WORKER] if no_allreduce
+    code = NO_ALLREDUCE_WORKER if no_allreduce else code
+    entry = (["-c", code] if code
              else ["-m", "ste_gan_torch.parallel.multiprocess"])
     cmd = [sys.executable, *entry, "--out", str(out), "--timeout_s", "300",
            *flags]
@@ -2301,23 +2321,37 @@ def _loss_gap(hist, want) -> float:
     return max(_loss_gaps(hist, want))
 
 
+def _conv_weight(layer):
+    """The kernel tensor ``[out, in/G, K]`` a conv layer holds (its slab
+    once split)."""
+    for name in ("weight_orig", "weight_v", "weight"):
+        w = getattr(layer, name, None)
+        if hasattr(w, "dim") and w.dim() == 3:
+            return w
+    raise TypeError(f"no conv kernel on {type(layer).__name__}")
+
+
 def scale_disc_geometries(gc, disc, chunk: int, rows: int,
                           channels: int) -> list:
     """(B, T, Cin, Cout, K, stride, pad, groups) of every grouped conv the
     scale discriminators of ``disc`` run on ``rows`` stacked rows of
     ``chunk`` samples of ``channels`` channels (scale ``i`` after ``i``
-    average pools)."""
+    average pools), read from the layers as they stand: a layer that
+    ``tensor_parallel.shard_module_`` split gives this rank's slab (its
+    kernel's channels and ``layer.tp.groups``, which may be 1)."""
     out, t = [], chunk
     for i, scale in enumerate(disc.multi_scale_disc):
         if i:
             t = (t + 2 - 4) // 2 + 1  # avg_pool1d(window 4, stride 2, pad 1)
-        t_in, cin = t, channels
+        t_in = t
         for layer in scale.layers:
-            k, s, pad, g = (layer.kernel_size[0], layer.stride[0],
-                            layer.padding[0], layer.groups)
-            if g > 1:
-                out.append((rows, t_in, cin, layer.out_channels, k, s, pad, g))
-            t_in, cin = gc.out_length(t_in, k, s, pad, pad), layer.out_channels
+            k, s, pad = layer.kernel_size[0], layer.stride[0], layer.padding[0]
+            if layer.groups > 1:
+                w = _conv_weight(layer)
+                g = layer.groups if layer.tp is None else layer.tp.groups
+                out.append((rows, t_in, w.shape[1] * g, w.shape[0], k, s,
+                            pad, g))
+            t_in = gc.out_length(t_in, k, s, pad, pad)
     return out
 
 
@@ -2445,8 +2479,8 @@ def check_dist(torch, card, counters, trainer_run):
        weight gate.
     3. NCCL at 2 ranks, with two cards only.
     4. Fleet recovery (launcher, two gloo ranks, ``--tiny``, deterministic,
-       6 steps, a recovery point every 2): rank 1 killed before step 3
-       and the fleet recovered elastically on one rank from step 2; its
+       6 steps, a recovery point every 2), beside 5: rank 1 killed before
+       step 3 and the fleet recovered elastically on one rank from step 2; its
        final state against that step-2 point (what an uninterrupted run
        writes there) continued by one rank in this process with the
        worker's deterministic settings (rtol 2e-5, atol 2e-6). The
@@ -2665,18 +2699,146 @@ def check_dist(torch, card, counters, trainer_run):
               flush=True)
 
     # ---- 4. Fleet recovery on the card: a crash of rank 1 before step 3
-    # recovered elastically on one rank. ----
+    # recovered elastically on one rank; the fleet runs beside 5 (its
+    # attempts are mostly process start-ups; 5 reports seconds only), and
+    # its check, which sets this process's deterministic settings, after
+    # 5. ----
     base = ["--num_processes", "2", "--steps", "6", "--ckpt_every", "2",
             "--device", "cuda", "--dist_backend", "gloo", "--timeout_s",
             "300", "--attempt_timeout", "600", "--deterministic"]
-    t0 = time.perf_counter()
+    t_fleet = time.perf_counter()
     run_dir = work / "fleet_elastic"
-    os.environ["STE_MP_CRASH"] = f"3:1:{run_dir / 'crash.flag'}"
+    fleet_out = {}
+
+    def run_fleet():
+        try:
+            fleet_out["summary"] = FleetLauncher(
+                parse_args(base + ["--run_dir", str(run_dir), "--elastic"]),
+                env={"STE_MP_CRASH": f"3:1:{run_dir / 'crash.flag'}"}).run()
+        except BaseException as err:  # reported, and fatal, below
+            fleet_out["error"] = err
+        fleet_out["seconds"] = time.perf_counter() - t_fleet
+
+    fleet_thread = threading.Thread(target=run_fleet)
+    fleet_thread.start()
+
     try:
-        fleet = FleetLauncher(parse_args(
-            base + ["--run_dir", str(run_dir), "--elastic"])).run()
+        # ---- 5. The trainer CLIs at world 2 (gloo, one card). ----
+        trainer_work = ROOT / "build" / "chip_smoke_trainer"
+        with open(ROOT / "configs" / "ste_gan_base_gantts.yaml") as fp:
+            base_cfg = yaml.safe_load(fp)
+        base_cfg["train"].update(interval_log=1, interval_valid=3,
+                                 interval_save=3, save_last_epoch_interval=1,
+                                 interval_sample=10_000)
+        paths = {}
+        for name in ("two", "resume"):
+            base_cfg["model_base_dir"] = str(work / f"gan_{name}")
+            paths[name] = work / f"gan_{name}.yaml"
+            paths[name].write_text(yaml.safe_dump(base_cfg))
+
+        def gan_argv(name, max_steps, *more):
+            return ["--config", str(paths[name]), "--data",
+                    str(trainer_work / "data.yaml"), "--emg_enc_cfg",
+                    str(ROOT / "configs" / "emg_encoder" /
+                        "conv_transformer.yaml"),
+                    "--max_steps", str(max_steps), *more]
+
+        t0 = time.perf_counter()
+        run_ranks([sys.executable, "-m", "ste_gan_torch.train.train_gan",
+                   *gan_argv("two", 5, "--dist_backend", "gloo",
+                             "--dist_timeout_s", "300")],
+                  2, work / "gan_two_logs", 900, env=_dist_env())
+        gan_s = time.perf_counter() - t0
+        run_name = Path(trainer_run).name
+        gan_run = work / "gan_two" / run_name
+        for entry in (".done", "checkpoint-final", "checkpoint-00000003",
+                      "best", "metrics.jsonl"):
+            if not (gan_run / entry).exists():
+                raise SystemExit(f"[dist] 2-rank trainer run lacks {entry}")
+        logged = [json.loads(line) for line in
+                  (gan_run / "metrics.jsonl").read_text().splitlines()]
+        g_losses = {r["step"]: r["value"] for r in logged
+                    if r["tag"] == "train_loss/generator"}
+        gan_launches = _logged_launches(gan_run / "log.txt")
+        messages = []
+
+        class Capture(logging.Handler):
+            def emit(self, record):
+                messages.append(record.getMessage())
+
+        capture = Capture()
+        logging.getLogger().addHandler(capture)
+        try:
+            t0 = time.perf_counter()
+            train_gan.main(train_gan.parse_args(gan_argv(
+                "resume", 7, "--checkpoint",
+                str(gan_run / "checkpoint-final"))))
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+        finally:
+            logging.getLogger().removeHandler(capture)
+        resumed = [m for m in messages if m.startswith("Restored train state")]
+        resume_run = work / "gan_resume" / run_name
+        r_losses = {json.loads(line)["step"]: json.loads(line)["value"]
+                    for line in (resume_run / "metrics.jsonl").read_text()
+                    .splitlines()
+                    if json.loads(line)["tag"] == "train_loss/generator"}
+        values = list(g_losses.values()) + list(r_losses.values())
+        if (sorted(g_losses) != list(range(6)) or sorted(r_losses) != [6, 7]
+                or not resumed or "at step 6 " not in resumed[0]
+                or any(v != v or abs(v) == float("inf") for v in values)):
+            raise SystemExit(f"[dist] the 2-rank trainer or its single-device "
+                             f"resume went wrong: {g_losses}, {r_losses}, "
+                             f"{resumed}")
+        missing = [k for k in counters if gan_launches[k] <= 0]
+        if missing:
+            raise SystemExit(f"[dist] the 2-rank trainer's rank 0 never "
+                             f"launched {missing}")
+
+        enc_data = ROOT / "build" / "chip_smoke_encoder" / "synthetic.yaml"
+        t0 = time.perf_counter()
+        run_ranks([sys.executable, "-m", "ste_gan_torch.train.encoder",
+                   "--config",
+                   str(ROOT / "configs" / "ste_gan_base_gantts.yaml"),
+                   "--data", str(enc_data), "--emg_enc_cfg",
+                   str(ROOT / "configs" / "emg_encoder" /
+                       "conv_transformer.yaml"),
+                   "--exp_dir", str(work / "enc_two"), "--num_epochs", "1",
+                   "--dist_backend", "gloo", "--dist_timeout_s", "300"],
+                  2, work / "enc_two_logs", 900, env=_dist_env())
+        enc_s = time.perf_counter() - t0
+        enc_run = next((work / "enc_two").iterdir())
+        enc_logged = [json.loads(line) for line in
+                      (enc_run / "metrics.jsonl").read_text().splitlines()]
+        enc_losses = [r["value"] for r in enc_logged
+                      if r["tag"] in ("train/loss", "val/loss")]
+        enc_launches = _logged_launches(enc_run / "log.txt")
+        if (not (enc_run / ".done").exists() or not enc_losses
+                or any(v != v or abs(v) == float("inf") for v in enc_losses)
+                or enc_launches["fused_adamw"] <= 0):
+            raise SystemExit(f"[dist] the 2-rank encoder trainer went wrong: "
+                             f"{enc_losses}, {enc_launches}")
+        report["trainers"] = {
+            "gan_two_ranks_s": gan_s, "gan_losses": g_losses,
+            "gan_rank0_launches": gan_launches, "resume_s": resume_s,
+            "resumed_losses": r_losses, "encoder_two_ranks_s": enc_s,
+            "encoder_losses": enc_losses,
+            "encoder_rank0_launches": enc_launches}
+        print(f"[dist] train_gan at 2 gloo ranks: steps 0-5 in {gan_s:.1f} s "
+              f"(G "
+              f"{', '.join(f'{g_losses[s]:.3f}' for s in sorted(g_losses))}), "
+              f"rank 0 launches {gan_launches}; resumed by the single-device "
+              f"trainer at step 6 to 7 in {resume_s:.1f} s; train.encoder at "
+              f"2 "
+              f"gloo ranks, 1 voiced epoch in {enc_s:.1f} s, rank 0 launches "
+              f"{enc_launches} ({card})", flush=True)
     finally:
-        os.environ.pop("STE_MP_CRASH", None)
+        # A failed trainer run still waits for the fleet's ranks to end.
+        fleet_thread.join()
+
+    if "error" in fleet_out:
+        raise SystemExit(f"[dist] the fleet failed: {fleet_out['error']!r}")
+    fleet = fleet_out["summary"]
     # The elastic run's schedule without the crash: its two ranks' step-2
     # recovery point (what an uninterrupted two-rank run writes there, bit
     # for bit: --deterministic) continued by one rank, here, with the
@@ -2701,7 +2863,7 @@ def check_dist(torch, card, counters, trainer_run):
          torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved[1:5]
         torch.use_deterministic_algorithms(saved[5])
-    fleet_s = time.perf_counter() - t0
+    fleet_s = fleet_out["seconds"]
     got = dict(np.load(Path(fleet["final_out"]) / "state_p0.npz"))
     if set(got) != set(want):
         raise SystemExit("[dist] fleet: the elastic run's state keys differ")
@@ -2720,110 +2882,6 @@ def check_dist(torch, card, counters, trainer_run):
     if (fleet["recovered_from"] != [2] or fleet["world_sizes"] != [2, 1]
             or not worst <= 1.0):
         raise SystemExit(f"[dist] fleet recovery failed: {report['fleet']}")
-
-    # ---- 5. The trainer CLIs at world 2 (gloo, one card). ----
-    trainer_work = ROOT / "build" / "chip_smoke_trainer"
-    with open(ROOT / "configs" / "ste_gan_base_gantts.yaml") as fp:
-        base_cfg = yaml.safe_load(fp)
-    base_cfg["train"].update(interval_log=1, interval_valid=3,
-                             interval_save=3, save_last_epoch_interval=1,
-                             interval_sample=10_000)
-    paths = {}
-    for name in ("two", "resume"):
-        base_cfg["model_base_dir"] = str(work / f"gan_{name}")
-        paths[name] = work / f"gan_{name}.yaml"
-        paths[name].write_text(yaml.safe_dump(base_cfg))
-
-    def gan_argv(name, max_steps, *more):
-        return ["--config", str(paths[name]), "--data",
-                str(trainer_work / "data.yaml"), "--emg_enc_cfg",
-                str(ROOT / "configs" / "emg_encoder" /
-                    "conv_transformer.yaml"),
-                "--max_steps", str(max_steps), *more]
-
-    t0 = time.perf_counter()
-    run_ranks([sys.executable, "-m", "ste_gan_torch.train.train_gan",
-               *gan_argv("two", 5, "--dist_backend", "gloo",
-                         "--dist_timeout_s", "300")],
-              2, work / "gan_two_logs", 900, env=_dist_env())
-    gan_s = time.perf_counter() - t0
-    run_name = Path(trainer_run).name
-    gan_run = work / "gan_two" / run_name
-    for entry in (".done", "checkpoint-final", "checkpoint-00000003",
-                  "best", "metrics.jsonl"):
-        if not (gan_run / entry).exists():
-            raise SystemExit(f"[dist] 2-rank trainer run lacks {entry}")
-    logged = [json.loads(line) for line in
-              (gan_run / "metrics.jsonl").read_text().splitlines()]
-    g_losses = {r["step"]: r["value"] for r in logged
-                if r["tag"] == "train_loss/generator"}
-    gan_launches = _logged_launches(gan_run / "log.txt")
-    messages = []
-
-    class Capture(logging.Handler):
-        def emit(self, record):
-            messages.append(record.getMessage())
-
-    capture = Capture()
-    logging.getLogger().addHandler(capture)
-    try:
-        t0 = time.perf_counter()
-        train_gan.main(train_gan.parse_args(gan_argv(
-            "resume", 7, "--checkpoint", str(gan_run / "checkpoint-final"))))
-        torch.cuda.synchronize()
-        resume_s = time.perf_counter() - t0
-    finally:
-        logging.getLogger().removeHandler(capture)
-    resumed = [m for m in messages if m.startswith("Restored train state")]
-    resume_run = work / "gan_resume" / run_name
-    r_losses = {json.loads(line)["step"]: json.loads(line)["value"]
-                for line in (resume_run / "metrics.jsonl").read_text()
-                .splitlines()
-                if json.loads(line)["tag"] == "train_loss/generator"}
-    values = list(g_losses.values()) + list(r_losses.values())
-    if (sorted(g_losses) != list(range(6)) or sorted(r_losses) != [6, 7]
-            or not resumed or "at step 6 " not in resumed[0]
-            or any(v != v or abs(v) == float("inf") for v in values)):
-        raise SystemExit(f"[dist] the 2-rank trainer or its single-device "
-                         f"resume went wrong: {g_losses}, {r_losses}, "
-                         f"{resumed}")
-    missing = [k for k in counters if gan_launches[k] <= 0]
-    if missing:
-        raise SystemExit(f"[dist] the 2-rank trainer's rank 0 never "
-                         f"launched {missing}")
-
-    enc_data = ROOT / "build" / "chip_smoke_encoder" / "synthetic.yaml"
-    t0 = time.perf_counter()
-    run_ranks([sys.executable, "-m", "ste_gan_torch.train.encoder",
-               "--config", str(ROOT / "configs" / "ste_gan_base_gantts.yaml"),
-               "--data", str(enc_data), "--emg_enc_cfg",
-               str(ROOT / "configs" / "emg_encoder" / "conv_transformer.yaml"),
-               "--exp_dir", str(work / "enc_two"), "--num_epochs", "1",
-               "--dist_backend", "gloo", "--dist_timeout_s", "300"],
-              2, work / "enc_two_logs", 900, env=_dist_env())
-    enc_s = time.perf_counter() - t0
-    enc_run = next((work / "enc_two").iterdir())
-    enc_logged = [json.loads(line) for line in
-                  (enc_run / "metrics.jsonl").read_text().splitlines()]
-    enc_losses = [r["value"] for r in enc_logged
-                  if r["tag"] in ("train/loss", "val/loss")]
-    enc_launches = _logged_launches(enc_run / "log.txt")
-    if (not (enc_run / ".done").exists() or not enc_losses
-            or any(v != v or abs(v) == float("inf") for v in enc_losses)
-            or enc_launches["fused_adamw"] <= 0):
-        raise SystemExit(f"[dist] the 2-rank encoder trainer went wrong: "
-                         f"{enc_losses}, {enc_launches}")
-    report["trainers"] = {
-        "gan_two_ranks_s": gan_s, "gan_losses": g_losses,
-        "gan_rank0_launches": gan_launches, "resume_s": resume_s,
-        "resumed_losses": r_losses, "encoder_two_ranks_s": enc_s,
-        "encoder_losses": enc_losses, "encoder_rank0_launches": enc_launches}
-    print(f"[dist] train_gan at 2 gloo ranks: steps 0-5 in {gan_s:.1f} s "
-          f"(G {', '.join(f'{g_losses[s]:.3f}' for s in sorted(g_losses))}), "
-          f"rank 0 launches {gan_launches}; resumed by the single-device "
-          f"trainer at step 6 to 7 in {resume_s:.1f} s; train.encoder at 2 "
-          f"gloo ranks, 1 voiced epoch in {enc_s:.1f} s, rank 0 launches "
-          f"{enc_launches} ({card})", flush=True)
 
     # ---- 6. Scale-out synthesis: one card named twice. ----
     torch.backends.cudnn.allow_tf32 = False
@@ -2854,6 +2912,548 @@ def check_dist(torch, card, counters, trainer_run):
     report["seconds"] = time.perf_counter() - t_phase
     print(f"[dist] phase took {report['seconds']:.1f} s", flush=True)
     shutil.rmtree(work, ignore_errors=True)
+    world1 = {"bare": runs["bare"], "init": weights["init"],
+              "dp": weights["dp"],
+              "state_bytes": summary[1]["replicated_bytes"]}
+    return report, world1
+
+
+#: The worker with ``copy_to_model``'s backward sum left out: each model
+#: rank keeps only its slab's part of every input gradient. The control
+#: that shows the ``[tp]`` gates catch a missing sum.
+NO_COPY_SUM_WORKER = (
+    "import sys\n"
+    "from ste_gan_torch.parallel import tensor_parallel as tp\n"
+    "tp._CopyToModel.backward = staticmethod(\n"
+    "    lambda ctx, grad: (grad, None, None))\n"
+    "from ste_gan_torch.parallel.multiprocess import main\n"
+    "main(sys.argv[1:])\n")
+
+
+def _split_slabs(module, model: int):
+    """``module``, in place, as ``tensor_parallel.shard_module_`` leaves
+    model rank ``model - 1`` of ``model`` (no group: only the shapes are
+    read)."""
+    from ste_gan_torch.parallel import tensor_parallel as tp
+
+    tp.shard_module_(module, tp.Mesh2D(None, None, None, 0, 1, model - 1,
+                                       model))
+    return module
+
+
+def check_tp_kernels(torch, gc, fa, full):
+    """The hand kernels against their plain versions at the per-rank shapes
+    that tensor parallelism runs, each fatal on a disagreement. Forward, dX
+    and dW (f32 and bf16 at ``TOL``) at every grouped layer of: the small
+    (shipped) and the full discriminators at 2 and 4 model ranks on paired
+    2B = 64 rows; the tiny discriminator of [tp]'s tiny layouts at 2 model
+    ranks on 16 and 32 paired rows ((2, 2) and (1, 2) ``--fsdp``). AdamW
+    (1e-6) over the slabs of the shipped G and D at 2 and 4, of the tiny G
+    and D at 2 ((2, 2)), over one flat tensor the size of each tiny
+    network's (1, 2) hybrid-FSDP shard, and over the encoder's slabs at 2
+    (``train.encoder --model_parallel 2``). Every shape is read from
+    modules that ``shard_module_`` split, so the shapes held are those that
+    run. These launches are not counted."""
+    from ste_gan_torch.config import load_config
+    from ste_gan_torch.models.discriminator import DiscriminatorEnsemble
+    from ste_gan_torch.models.emg_encoder import init_emg_encoder
+    from ste_gan_torch.parallel.fsdp import shard_numel
+    from ste_gan_torch.parallel.multiprocess import tiny_setup
+    from ste_gan_torch.train.gan import build_models
+
+    t0 = time.perf_counter()
+    cfg, _ = full
+    cfg_t, tiny = tiny_setup("cpu")
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    geoms, dense, slabs = {}, {}, {}
+
+    def hold(label, disc, c, row_counts):
+        per_rank = [g for rows in row_counts for g in scale_disc_geometries(
+            gc, disc, c.train.chunk_size, rows, c.data.num_emg_channels)]
+        geoms[label] = [g for g in per_rank if g[-1] > 1]
+        dense[label] = [g for g in per_rank if g[-1] == 1]
+
+    def leaves(label, net):
+        slabs[label] = [p.shape for p in net.parameters()]
+
+    for model in (2, 4):
+        sliced = build_models(cfg, seed=0, device="cpu")
+        for net in ("generator", "discriminator"):
+            leaves(f"{net}_model{model}",
+                   _split_slabs(getattr(sliced, net), model))
+        hold(f"small_model{model}", sliced.discriminator, cfg,
+             (2 * cfg.train.batch_size,))
+        hold(f"full_model{model}",
+             _split_slabs(DiscriminatorEnsemble(small=False), model), cfg,
+             (2 * cfg.train.batch_size,))
+        del sliced
+    for net in ("generator", "discriminator"):
+        leaves(f"tiny_{net}_model2", _split_slabs(getattr(tiny, net), 2))
+    hold("tiny_model2", tiny.discriminator, cfg_t,
+         (cfg_t.train.batch_size, 2 * cfg_t.train.batch_size))
+    cfg_e = load_config(
+        str(ROOT / "configs" / "ste_gan_base_gantts.yaml"),
+        str(ROOT / "configs" / "data" / "synthetic.yaml"),
+        str(ROOT / "configs" / "emg_encoder" / "conv_transformer.yaml"))
+    leaves("encoder_model2",
+           _split_slabs(init_emg_encoder(cfg_e, torch.float32), 2))
+
+    conv_rows = [row for label, gs in geoms.items()
+                 for row in hold_conv(torch, gc, gs, gen, f"tp-{label}")]
+    gan_hyper = dict(lr=2e-4, b1=0.8, b2=0.99, weight_decay=1e-2)
+    enc_hyper = dict(lr=3e-4, b1=0.9, b2=0.999, weight_decay=1e-5)
+    adamw_rows = []
+    for label, shapes in slabs.items():
+        hyper = enc_hyper if label.startswith("encoder") else gan_hyper
+        adamw_rows.append({"network": label, "layout": "slabs",
+                           **adamw_row(torch, fa, shapes, gen, **hyper)})
+        if label.startswith("tiny_"):
+            n = shard_numel([int(np.prod(s)) for s in shapes], 1)
+            adamw_rows.append({"network": label, "layout": "fsdp_1x2_shard",
+                               **adamw_row(torch, fa, [(n,)], gen,
+                                           **gan_hyper)})
+    for row in adamw_rows:
+        print(f"[tp] fused_adamw {row['network']} {row['layout']} "
+              f"({row['params']} params, {row['leaves']} leaves): max|err| "
+              f"{row['max_abs_err']:.3e} (tol {row['tol']:g}) kernel "
+              f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms library "
+              f"{row['library_ms']:.4f} ms bound {row['bound_ms']:.4f} ms",
+              flush=True)
+    summary = {name: {"shapes": sum(r["kernel"] == name for r in conv_rows),
+                      "max_rel_err": max(r["max_rel_err"] for r in conv_rows
+                                         if r["kernel"] == name)}
+               for name in ("grouped_conv_fwd", "grouped_conv_dx",
+                            "grouped_conv_dw")}
+    summary["fused_adamw"] = {
+        "shapes": len(adamw_rows),
+        "max_abs_err": max(r["max_abs_err"] for r in adamw_rows)}
+    seconds = time.perf_counter() - t0
+    print(f"[tp] kernels at the per-rank shapes: {summary}; grouped layers "
+          f"per rank {({k: len(v) for k, v in geoms.items()})}, fallen to one "
+          f"group (F.conv1d) {({k: len(v) for k, v in dense.items()})}, "
+          f"{seconds:.1f} s", flush=True)
+    return {"geometries": geoms, "dense_geometries": dense,
+            "conv": conv_rows, "adamw": adamw_rows, "summary": summary,
+            "seconds": seconds}
+
+
+def _tiny_world1(torch, steps: int):
+    """The tiny setup's ``steps`` from its seed on this card, one rank,
+    with the worker's ``--deterministic`` settings: (history, weights)."""
+    from ste_gan_torch.parallel.multiprocess import (
+        deterministic, run_steps, tiny_setup)
+
+    saved = (dict(os.environ), torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.are_deterministic_algorithms_enabled())
+    deterministic()
+    try:
+        cfg_t, models_t = tiny_setup("cuda")
+        tree, hist, _ = run_steps(cfg_t, models_t, steps)
+        return hist, _weights(tree)
+    finally:
+        os.environ.clear()
+        os.environ.update(saved[0])
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved[1:5]
+        torch.use_deterministic_algorithms(saved[5])
+
+
+def check_tp(torch, card, counters, world1, world1_encoder, trainer_run):
+    """``[tp]``: tensor parallelism on the one card, gloo ranks sharing it.
+
+    1. ``(data, model) = (1, 2)`` at the bare step's full width
+       (``Config()``, 32 x 2048, bf16) through the worker, ``DIST_STEPS``
+       steps: losses within ``DIST_LOSS_RTOL`` of [dist]'s world 1, weights
+       within ``DIST_WEIGHT_RTOL`` (``_weight_deviation`` against world 1's
+       DP run), both ranks' gathered states equal, every GAN kernel
+       launched on each rank; ms/step, collectives and state bytes per
+       rank. Then a control run without ``copy_to_model``'s backward sum
+       (``NO_COPY_SUM_WORKER``), which must fail a gate.
+    2. The tiny setup (``--deterministic``) at (1, 2) with ``--fsdp`` and
+       at (2, 2), beside the control: losses and weights against the tiny
+       world 1 on this card, ranks equal.
+    3. One voiced epoch of ``train.encoder --model_parallel 2``, beside
+       the trainer runs of 4: its train and validation losses within
+       ``DIST_LOSS_RTOL`` of the first epoch of [encoder-trainer]'s world-1
+       voiced run (``world1_encoder``).
+    4. ``train_gan`` on the [trainer] corpus: world 1 for steps 0-1, its
+       checkpoint resumed at (1, 2) for steps 2-3, that one resumed at
+       world 1 for steps 4-5; the G and D losses within ``DIST_LOSS_RTOL``
+       of the same six steps run uninterrupted at world 1.
+
+    Two ranks on one card share its SMs and the host: correctness and the
+    collectives' cost, not scaling."""
+    import logging
+
+    import yaml
+
+    from ste_gan_torch.parallel.launch import run_ranks
+    from ste_gan_torch.train import train_gan
+
+    work = ROOT / "build" / "chip_smoke_tp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    report = {}
+
+    def gates(hist, stats, rank_w, want_hist, want_w, init_w):
+        gaps = _loss_gaps(hist[0], want_hist)
+        return {
+            "gap": max(gaps), "gaps_per_step": gaps,
+            "weight_deviation": _weight_deviation(rank_w[0], want_w, init_w),
+            "replicas_equal": all(np.array_equal(rank_w[0][k], w[k])
+                                  for w in rank_w[1:] for k in rank_w[0]),
+            "ms": [_steady_ms(h) for h in hist],
+            "tp_comm_ms_per_step": [s["tp_comm_ms_per_step"] for s in stats],
+            "dp_comm_ms_per_step": [s["comm_ms_per_step"] for s in stats],
+            "tp_calls_per_step": stats[0]["tp_calls_per_step"],
+            "tp_mb_per_step": stats[0]["tp_mb_per_step"],
+            "persistent_bytes": [s["persistent_bytes"] for s in stats],
+            "launches": [s["launches"] for s in stats]}
+
+    def sound(name, r):
+        return (r["gap"] <= DIST_LOSS_RTOL
+                and r["weight_deviation"] <= DIST_WEIGHT_RTOL
+                and r["replicas_equal"])
+
+    # ---- 1. (1, 2) at full width, alone on the card (timed). ----
+    out = work / "full_1x2"
+    hist, stats = _dist_worker(out, 2, "--full", "--dist_backend", "gloo",
+                               "--steps", str(DIST_STEPS),
+                               "--model_parallel", "2")
+    full = gates(hist, stats, _rank_weights(out, 2), world1["bare"],
+                 world1["dp"], world1["init"])
+    shutil.rmtree(out)
+    report["full_1x2"] = full
+    print(f"[tp] (data, model) = (1, 2) on one card over gloo, full width "
+          f"(32 rows on each model rank): ms/step per rank "
+          f"{', '.join(f'{x:.2f}' for x in full['ms'])}; tensor-parallel "
+          f"collectives {full['tp_calls_per_step']:.0f} per step, "
+          f"{full['tp_mb_per_step']:.1f} MB, "
+          f"{', '.join(f'{x:.2f}' for x in full['tp_comm_ms_per_step'])} ms "
+          f"per step; state held per rank "
+          f"{[round(b / 2**20, 1) for b in full['persistent_bytes']]} MB "
+          f"(world 1: {world1['state_bytes'] / 2**20:.1f}); relative loss "
+          f"gap to world 1 per step "
+          f"{', '.join(f'{g:.3e}' for g in full['gaps_per_step'])} (tol "
+          f"{DIST_LOSS_RTOL:g}); weight deviation "
+          f"{full['weight_deviation']:.3e} (tol {DIST_WEIGHT_RTOL:g}); "
+          f"ranks' states equal "
+          f"{full['replicas_equal']}; launches per rank {full['launches']} "
+          f"— two ranks share one card: correctness and collective cost, not "
+          f"scaling ({card})", flush=True)
+    if not sound("full_1x2", full):
+        raise SystemExit(f"[tp] (1, 2) left world 1: {full}")
+    missing = [k for rank in full["launches"] for k in counters
+               if rank[k] <= 0]
+    if missing:
+        raise SystemExit(f"[tp] kernels never launched on a rank: {missing}")
+
+    # ---- 2. The control and the tiny layouts, side by side. ----
+    t0 = time.perf_counter()
+    tiny_hist, tiny_w = _tiny_world1(torch, DIST_STEPS)
+    runs, errors = {}, {}
+
+    def launch(name, world, *flags, control=False):
+        out = work / name
+        try:
+            runs[name] = _dist_worker(
+                out, world, *flags,
+                code=NO_COPY_SUM_WORKER if control else "") + (
+                    _rank_weights(out, world),)
+        except Exception as err:  # reported, and fatal, below
+            errors[name] = err
+
+    threads = [
+        threading.Thread(target=launch, args=(
+            "control_no_copy_sum", 2, "--full", "--dist_backend", "gloo",
+            "--steps", str(DIST_STEPS), "--model_parallel", "2"),
+            kwargs={"control": True}),
+        threading.Thread(target=launch, args=(
+            "tiny_1x2_fsdp", 2, "--tiny", "--deterministic", "--dist_backend",
+            "gloo", "--steps", str(DIST_STEPS), "--model_parallel", "2",
+            "--fsdp")),
+        threading.Thread(target=launch, args=(
+            "tiny_2x2", 4, "--tiny", "--deterministic", "--dist_backend",
+            "gloo", "--steps", str(DIST_STEPS), "--model_parallel", "2"))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise SystemExit(f"[tp] runs failed: {errors}")
+    hist, stats, rank_w = runs["control_no_copy_sum"]
+    control = gates(hist, stats, rank_w, world1["bare"], world1["dp"],
+                    world1["init"])
+    report["control_no_copy_sum"] = control
+    caught = {"loss": control["gap"] > DIST_LOSS_RTOL,
+              "weights": control["weight_deviation"] > DIST_WEIGHT_RTOL,
+              "ranks_equal": not control["replicas_equal"]}
+    print(f"[tp] control without copy_to_model's backward sum, (1, 2) full "
+          f"width: loss gap {control['gap']:.3e}, weight deviation "
+          f"{control['weight_deviation']:.3e}; caught by {caught} ({card})",
+          flush=True)
+    if not any(caught.values()):
+        raise SystemExit("[tp] no gate catches ranks that skip "
+                         "copy_to_model's backward sum")
+    for name in ("tiny_1x2_fsdp", "tiny_2x2"):
+        hist, stats, rank_w = runs[name]
+        r = gates(hist, stats, rank_w, tiny_hist, tiny_w,
+                  _weights_of_init(torch))
+        report[name] = r
+        print(f"[tp] {name} (tiny, deterministic): loss gap to world 1 "
+              f"{r['gap']:.3e}, weight deviation {r['weight_deviation']:.3e}, "
+              f"ranks' states equal {r['replicas_equal']}; state held per "
+              f"rank {[round(b / 2**20, 3) for b in r['persistent_bytes']]} "
+              f"MB; collectives {r['tp_calls_per_step']:.0f} per step "
+              f"({card})", flush=True)
+        if not sound(name, r):
+            raise SystemExit(f"[tp] {name} left world 1: {r}")
+    report["side_by_side_s"] = time.perf_counter() - t0
+
+    # ---- 3. One voiced epoch of the encoder trainer at (1, 2), beside
+    # the trainer runs of 4 (its seconds include sharing the card). ----
+    enc_data = ROOT / "build" / "chip_smoke_encoder" / "synthetic.yaml"
+    enc_result = {}
+
+    def encoder_epoch():
+        t0 = time.perf_counter()
+        try:
+            run_ranks([sys.executable, "-m", "ste_gan_torch.train.encoder",
+                       "--config",
+                       str(ROOT / "configs" / "ste_gan_base_gantts.yaml"),
+                       "--data", str(enc_data), "--emg_enc_cfg",
+                       str(ROOT / "configs" / "emg_encoder" /
+                           "conv_transformer.yaml"),
+                       "--exp_dir", str(work / "enc"), "--num_epochs", "1",
+                       "--model_parallel", "2", "--dist_backend", "gloo",
+                       "--dist_timeout_s", "300"],
+                      2, work / "enc_logs", 900, env=_dist_env())
+        except Exception as err:  # reported, and fatal, below
+            enc_result["error"] = err
+        enc_result["seconds"] = time.perf_counter() - t0
+
+    enc_thread = threading.Thread(target=encoder_epoch)
+    enc_thread.start()
+
+    try:
+        # ---- 4. train_gan: world 1 -> (1, 2) -> world 1. ----
+        trainer_work = ROOT / "build" / "chip_smoke_trainer"
+        with open(ROOT / "configs" / "ste_gan_base_gantts.yaml") as fp:
+            base_cfg = yaml.safe_load(fp)
+        base_cfg["train"].update(interval_log=1, interval_valid=2,
+                                 interval_save=10_000,
+                                 save_last_epoch_interval=1,
+                                 interval_sample=10_000)
+        paths = {}
+        for name in ("a", "b", "c", "u"):
+            base_cfg["model_base_dir"] = str(work / f"gan_{name}")
+            paths[name] = work / f"gan_{name}.yaml"
+            paths[name].write_text(yaml.safe_dump(base_cfg))
+
+        def gan_argv(name, max_steps, *more):
+            return ["--config", str(paths[name]), "--data",
+                    str(trainer_work / "data.yaml"), "--emg_enc_cfg",
+                    str(ROOT / "configs" / "emg_encoder" /
+                        "conv_transformer.yaml"),
+                    "--max_steps", str(max_steps), *more]
+
+        run_name = Path(trainer_run).name
+
+        def two_ranks(name, max_steps, *more):
+            t0 = time.perf_counter()
+            run_ranks([sys.executable, "-m", "ste_gan_torch.train.train_gan",
+                       *gan_argv(name, max_steps, "--model_parallel", "2",
+                                 "--dist_backend", "gloo", "--dist_timeout_s",
+                                 "300", *more)],
+                      2, work / f"gan_{name}_logs", 900, env=_dist_env())
+            return work / f"gan_{name}" / run_name, time.perf_counter() - t0
+
+        messages = []
+
+        class Capture(logging.Handler):
+            def emit(self, record):
+                messages.append(record.getMessage())
+
+        def one_rank(name, max_steps, *more):
+            t0 = time.perf_counter()
+            train_gan.main(train_gan.parse_args(gan_argv(name, max_steps,
+                                                         *more)))
+            torch.cuda.synchronize()
+            return work / f"gan_{name}" / run_name, time.perf_counter() - t0
+
+        capture = Capture()
+        logging.getLogger().addHandler(capture)
+        try:
+            # World 1 for steps 0-1, its checkpoint at (1, 2) for 2-3, and
+            # that one at world 1 again for 4-5.
+            run_a, a_s = one_rank("a", 1)
+            run_b, b_s = two_ranks("b", 3, "--checkpoint",
+                                   str(run_a / "checkpoint-final"))
+            run_c, c_s = one_rank("c", 5, "--checkpoint",
+                                  str(run_b / "checkpoint-final"))
+            # The same six steps uninterrupted at world 1: the yardstick.
+            run_u, u_s = one_rank("u", 5)
+        finally:
+            logging.getLogger().removeHandler(capture)
+
+        def losses(run, net="generator"):
+            recs = [json.loads(line) for line in
+                    (run / "metrics.jsonl").read_text().splitlines()]
+            return {r["step"]: r["value"] for r in recs
+                    if r["tag"] == f"train_loss/{net}"}
+
+        la, lb, lc = losses(run_a), losses(run_b), losses(run_c)
+        g_all = {**la, **lb, **lc}
+        chain = [{"G": g_all[k], "D": d} for k, d in sorted({
+            **losses(run_a, "discriminator"), **losses(run_b, "discriminator"),
+            **losses(run_c, "discriminator")}.items())]
+        lu, du = losses(run_u), losses(run_u, "discriminator")
+        uninterrupted = [{"G": lu[k], "D": du[k]} for k in sorted(lu)]
+        restored_b = [ln for ln in (run_b / "log.txt").read_text().splitlines()
+                      if "Restored train state at step 2 " in ln]
+        restored_c = [m for m in messages
+                      if m.startswith("Restored train state at step 4 ")]
+        launches_b = _logged_launches(run_b / "log.txt")
+        values = [*la.values(), *lb.values(), *lc.values()]
+        chain_gaps = (_loss_gaps(chain, uninterrupted)
+                      if len(chain) == len(uninterrupted) == 6 else None)
+        report["trainer"] = {"world1_0_1_s": a_s, "tp_2_3_s": b_s,
+                             "world1_4_5_s": c_s, "uninterrupted_s": u_s,
+                             "losses": chain,
+                             "uninterrupted_losses": uninterrupted,
+                             "gaps_per_step": chain_gaps,
+                             "rank0_launches": launches_b}
+        print(f"[tp] train_gan: world 1 for steps 0-1 in {a_s:.1f} s, its "
+              f"checkpoint at (1, 2) for steps 2-3 in {b_s:.1f} s (two process "
+              f"start-ups, a validation and the saves; rank 0 launches "
+              f"{launches_b}), that checkpoint at world 1 for steps 4-5 in "
+              f"{c_s:.1f} s; G "
+              f"{', '.join(f'{g_all[k]:.3f}' for k in sorted(g_all))}; "
+              f"relative G/D loss gap per step to the same 6 steps "
+              f"uninterrupted at world 1 ({u_s:.1f} s) "
+              f"{', '.join(f'{g:.3e}' for g in chain_gaps or [])} (tol "
+              f"{DIST_LOSS_RTOL:g}) ({card})", flush=True)
+        if (sorted(la) != [0, 1] or sorted(lb) != [2, 3] or sorted(lc) != [4, 5]
+                or not restored_b or not restored_c
+                or any(v != v or abs(v) == float("inf") for v in values)
+                or chain_gaps is None or not max(chain_gaps) <= DIST_LOSS_RTOL):
+            raise SystemExit(f"[tp] the trainer's hand-offs between world 1 "
+                             f"and (1, 2) went wrong: {chain}, "
+                             f"{uninterrupted}, {restored_b}, {restored_c}")
+        missing = [k for k in counters if launches_b[k] <= 0]
+        if missing:
+            raise SystemExit(f"[tp] the (1, 2) trainer's rank 0 never launched "
+                             f"{missing}")
+    finally:
+        # A failed hand-off still waits for the encoder's ranks to end.
+        enc_thread.join()
+
+    if "error" in enc_result:
+        raise SystemExit(f"[tp] the (1, 2) encoder trainer failed: "
+                         f"{enc_result['error']}")
+    enc_s = enc_result["seconds"]
+    enc_run = next((work / "enc").iterdir())
+    logged = {"train/loss": [], "val/loss": []}
+    for line in (enc_run / "metrics.jsonl").read_text().splitlines():
+        rec = json.loads(line)
+        if rec["tag"] in logged:
+            logged[rec["tag"]].append(rec["value"])
+    enc_losses = logged["train/loss"] + logged["val/loss"]
+    # The first voiced epoch of [encoder-trainer]'s world-1 run: the same
+    # corpus, configuration, seed and precision settings.
+    want = (world1_encoder["train_loss"][:len(logged["train/loss"])]
+            + world1_encoder["val_loss"][:len(logged["val/loss"])])
+    enc_gaps = ([abs(a - b) / abs(b) for a, b in zip(enc_losses, want)]
+                if len(want) == len(enc_losses) else None)
+    enc_launches = _logged_launches(enc_run / "log.txt")
+    report["encoder"] = {"seconds": enc_s, "losses": enc_losses,
+                         "world1_losses": want, "gaps": enc_gaps,
+                         "rank0_launches": enc_launches}
+    print(f"[tp] train.encoder --model_parallel 2, 1 voiced epoch in "
+          f"{enc_s:.1f} s beside the trainer runs, train and val losses "
+          f"{enc_losses}, relative gap to world 1's first epoch "
+          f"{', '.join(f'{g:.3e}' for g in enc_gaps or [])} (tol "
+          f"{DIST_LOSS_RTOL:g}), rank 0 launches {enc_launches} ({card})",
+          flush=True)
+    if (not (enc_run / ".done").exists() or not logged["train/loss"]
+            or not logged["val/loss"] or enc_gaps is None
+            or not max(enc_gaps) <= DIST_LOSS_RTOL
+            or enc_launches["fused_adamw"] <= 0):
+        raise SystemExit(f"[tp] the (1, 2) encoder trainer went wrong: "
+                         f"{enc_losses} against world 1's {want}, "
+                         f"{enc_launches}")
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"[tp] phase took {report['seconds']:.1f} s", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return report
+
+
+def _weights_of_init(torch):
+    """The tiny setup's seeded initial weights (the tiny runs' ``init``)."""
+    from ste_gan_torch.parallel.multiprocess import tiny_setup
+    from ste_gan_torch.train.gan import init_state, state_tree
+
+    cfg_t, models_t = tiny_setup("cuda")
+    return _weights(state_tree(models_t, init_state(cfg_t, models_t)))
+
+
+def check_sp(torch, card):
+    """``[sp]``: time-sharded synthesis (``python -m
+    ste_gan_torch.parallel.sequence_parallel``) of the shipped generator
+    (seeded weights, f32, TF32 off), one launch of 4 gloo ranks sharing
+    the card: over the first 2 at 500 and 1,500 frames and over all 4 at
+    200 (blocks of 50 frames under the 128-frame context: three hops), each
+    against one-device synthesis
+    (``EMGSynthesizer.synthesize``) within ``INFER_TOL`` of its largest
+    value; ms per call against the same function on one device."""
+    from ste_gan_torch.infer import EMGSynthesizer
+    from ste_gan_torch.parallel.launch import run_ranks
+    from ste_gan_torch.parallel.sequence_parallel import (
+        seeded_case, shipped_generator, synthesize_time_sharded)
+
+    work = ROOT / "build" / "chip_smoke_sp"
+    shutil.rmtree(work, ignore_errors=True)
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, gen = shipped_generator("cuda")
+    synth = EMGSynthesizer(gen, device="cuda")
+    report = {}
+    cases = ((2, 500), (2, 1500), (4, 200))
+    out = work / "ranks"
+    run_ranks([sys.executable, "-m",
+               "ste_gan_torch.parallel.sequence_parallel", "--cases",
+               *(f"{r}:{f}" for r, f in cases), "--out", str(out),
+               "--dist_backend", "gloo", "--timeout_s", "300"],
+              max(r for r, _ in cases), out / "logs", 600, env=_dist_env())
+    stats = json.loads((out / "sp_stats.json").read_text())
+    for ranks, f in cases:
+        feats, sess = seeded_case(f)
+        want = synth.synthesize(feats, sess)
+        got = np.load(out / f"sp_{ranks}x{f}.npy")
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        one_ms = cuda_time(lambda: synthesize_time_sharded(
+            gen, feats, sess), reps=3, warmup=1)
+        local_t = -(-f // ranks)
+        row = {"ranks": ranks, "frames": f, "local_t": local_t,
+               "hops": min(-(-128 // local_t), ranks - 1),
+               "shape": list(got.shape), "rel": rel,
+               "ms": stats[f"{ranks}x{f}"]["ms"], "one_device_ms": one_ms}
+        report[f"{ranks}x{f}"] = row
+        print(f"[sp] {ranks} gloo ranks sharing the card, {f} frames "
+              f"(blocks of {local_t}, {row['hops']} hop(s)): within "
+              f"{rel:.3e} of one device (tol {INFER_TOL:g}, TF32 off); "
+              f"{row['ms']:.2f} ms per call against {one_ms:.2f} ms on "
+              f"one device ({card})", flush=True)
+        if not (got.shape == want.shape and rel <= INFER_TOL):
+            raise SystemExit(f"[sp] time-sharded synthesis differs: {row}")
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"[sp] phase took {report['seconds']:.1f} s", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
     return report
 
 
@@ -2882,6 +3482,13 @@ def main() -> int:
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
+    t_start = time.perf_counter()
+    laps = {}
+
+    def lap(phase: str) -> None:
+        """Seconds since the start at the end of ``phase``."""
+        laps[phase] = time.perf_counter() - t_start
+        print(f"[time] {phase} done at {laps[phase]:.1f} s", flush=True)
     build_s = build.build_all()
     print(f"[build] kernels built in {build_s:.1f} s", flush=True)
     for name, log in build.build_logs.items():
@@ -2898,6 +3505,7 @@ def main() -> int:
     report["adamw"] = adamw_rows
     report["reference"] = check_small_reference(Config, tgan)
     report["reference_accum_eval"] = check_small_accum_and_eval(Config, tgan)
+    lap("kernels and references")
 
     # ---- The main path at full width. ----
     counters = {"grouped_conv_fwd": gc.conv_fwd, "grouped_conv_dx": gc.conv_dx,
@@ -2942,9 +3550,11 @@ def main() -> int:
     if missing:
         raise SystemExit(f"kernels never launched on the main path: {missing}")
 
+    lap("step")
     # ---- The trainer CLI at the shipped configuration. ----
     report["trainer"] = check_trainer(torch, counters, 1e3 * sec_per_step,
                                       card)
+    lap("trainer")
     # The bare step again, so that the trainer's window is bracketed by
     # bare steps of the same process.
     t0 = time.perf_counter()
@@ -2969,36 +3579,44 @@ def main() -> int:
         torch, tenc, init_emg_encoder, Config)
     report["encoder_step"] = check_encoder_step(
         torch, tenc, fa, dtw, load_config, init_emg_encoder, card)
+    lap("dtw and encoder steps")
     try:
         report["encoder_trainer"] = check_encoder_trainer(
             torch, {"fused_adamw": fa.fused_adamw_,
                     "dtw": dtw.dtw_alignment_batched}, card)
         enc_launches = {mode: report["encoder_trainer"][mode]["launches"]
                         for mode in ("voiced", "mixed")}
+        lap("encoder trainer")
 
         # ---- Synthesis, decoding and offline evaluation on the runs the
         # trainer phases wrote. ----
         report["infer"] = check_infer(torch, card,
                                       report["trainer"]["corpus"])
+        lap("infer")
         report["evaluate"] = check_evaluate(
             torch, dtw, card, report["trainer"]["run_dir"],
             report["encoder_trainer"])
+        lap("evaluate")
 
         # ---- Deployment: artifacts, int8 and the HTTP service, on the
         # same runs. ----
         report["export"], artifacts = check_export(
             torch, card, report["trainer"]["run_dir"],
             report["encoder_trainer"])
+        lap("export")
         report["serve"] = check_serve(
             torch, card, report["trainer"]["run_dir"],
             report["encoder_trainer"], artifacts["generator_f32_serving"])
+        lap("serve")
 
         # ---- Corpus preparation: the filter kernel, then the cleaning
         # and prep CLIs over a raw tree at the corpus's shapes. ----
         from ste_gan_torch.ops import iir
 
         report["etl"], iir_summary = check_etl(torch, iir, card)
+        lap("etl")
         report["prep"] = check_prep(torch, iir, card, report["etl"])
+        lap("prep")
 
         # ---- The mixture-of-experts encoder, on the encoder phase's
         # corpora and the trainer phase's configuration. ----
@@ -3006,11 +3624,26 @@ def main() -> int:
             torch, tenc, fa, dtw, load_config, init_emg_encoder, Config,
             card, report["encoder_step"], report["encoder_trainer"],
             report["trainer"]["run_dir"])
+        lap("moe")
 
         # ---- Data parallelism and FSDP over ranks, the launcher, the
         # trainers at 2 ranks and scale-out synthesis, on the one card. ----
-        report["dist"] = check_dist(torch, card, counters,
-                                    report["trainer"]["run_dir"])
+        report["dist"], world1 = check_dist(torch, card, counters,
+                                            report["trainer"]["run_dir"])
+
+        # ---- Tensor parallelism: the kernels at the per-rank shapes, the
+        # worker at (1, 2) full width and its control, the tiny layouts,
+        # both trainers at (1, 2); then time-sharded synthesis. ----
+        lap("dist")
+        report["tp_kernels"] = check_tp_kernels(
+            torch, gc, fa, (cfg, models))
+        report["tp"] = check_tp(torch, card, counters, world1,
+                                report["encoder_trainer"]["voiced"],
+                                report["trainer"]["run_dir"])
+        del world1
+        lap("tp")
+        report["sp"] = check_sp(torch, card)
+        lap("sp")
     finally:
         for work in ("chip_smoke_trainer", "chip_smoke_encoder"):
             shutil.rmtree(ROOT / "build" / work, ignore_errors=True)
@@ -3048,12 +3681,32 @@ def main() -> int:
                 "encoder_rank0_launches"][name]}
 
     dist_held = dist_report["kernels_at_dist_shapes"]["summary"]
+    tp_report = report["tp"]
+    tp_held = report["tp_kernels"]["summary"]
+
+    def tp_launches(name):
+        """Launches of ``name`` on the [tp] paths, per rank where a run
+        has several."""
+        return {
+            "worker_1x2_full_width": [r[name] for r in tp_report[
+                "full_1x2"]["launches"]],
+            "worker_1x2_tiny_fsdp": [r[name] for r in tp_report[
+                "tiny_1x2_fsdp"]["launches"]],
+            "worker_2x2_tiny": [r[name] for r in tp_report["tiny_2x2"][
+                "launches"]],
+            "train_gan_1x2_rank0": tp_report["trainer"]["rank0_launches"][
+                name],
+            "train_encoder_1x2_rank0": tp_report["encoder"][
+                "rank0_launches"][name]}
+
     kernels = [{"name": name, "route": "cuda", "source": source[name],
                 "kernel": cuda_kernels[name], "replaces": replaces[name],
                 "launches": launches[name],
                 "trainer_launches": report["trainer"]["launches"][name],
                 "dist_launches": dist_launches(name),
                 "dist_shapes_held": dist_held[name],
+                "tp_launches": tp_launches(name),
+                "tp_shapes_held": tp_held[name],
                 **summaries[name]}
                for name in counters]
     enc_adamw = report["encoder_step"]["adamw"]
@@ -3077,6 +3730,9 @@ def main() -> int:
             "dtw_launches"],
         "dist_launches": {"encoder_two_ranks_voiced_rank0": dist_report[
             "trainers"]["encoder_rank0_launches"]["dtw"]},
+        "tp_launches": {"train_encoder_1x2_rank0_voiced": tp_report[
+            "encoder"]["rank0_launches"]["dtw"]},
+        "tp_shapes_held": None,
         **dtw_summary})
     kernels.append({
         "name": "filtfilt", "route": "cuda", "source": "ste_gan_torch/csrc/iir.cu",
@@ -3085,8 +3741,11 @@ def main() -> int:
         "launches": report["prep"]["filtfilt_launches"],
         "launches_on": "the [prep] run (clean_audio, then prep_data)",
         "dist_launches": {},
+        "tp_launches": {},
+        "tp_shapes_held": None,
         **iir_summary})
     report["kernels"] = kernels
+    report["laps_s"] = laps
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

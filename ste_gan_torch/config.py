@@ -409,8 +409,8 @@ def add_eval_hyperparams_to_parser(parser: argparse.ArgumentParser) -> argparse.
                         help="Maximum training steps (<0 keeps config value).")
     parser.add_argument("--model_parallel", type=int, default=-1,
                         help="Tensor-parallel size (<=0 keeps the config "
-                             "value); tensor parallelism is not ported "
-                             "yet, a value above 1 raises.")
+                             "value): the ranks form (ranks / P, P) "
+                             "(parallel/tensor_parallel.py).")
     parser.add_argument("--grad_accum", type=int, default=-1,
                         help="Split each batch into K sequential "
                              "microbatches with one optimizer update — "
@@ -425,8 +425,8 @@ def add_eval_hyperparams_to_parser(parser: argparse.ArgumentParser) -> argparse.
                              "config value).")
     parser.add_argument("--fsdp", type=int, default=-1,
                         help="1 = the train state stored sharded over the "
-                             "ranks (parallel/fsdp.py; <0 keeps the config "
-                             "value).")
+                             "(data) ranks (parallel/fsdp.py; <0 keeps the "
+                             "config value).")
     return parser
 
 

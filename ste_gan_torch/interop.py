@@ -21,7 +21,7 @@ torch weight's ``(in, *k)`` order, so an eval forward matches JAX exactly.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -184,6 +184,26 @@ def encoder_variables_to_state_dict(variables: Mapping) -> Dict[str, np.ndarray]
         else:
             raise ValueError(f"unexpected encoder entry: {name}")
     return sd
+
+
+def shard_state_dict(sd: Mapping[str, np.ndarray],
+                     axes: Mapping[str, Optional[int]], rank: int,
+                     size: int) -> Dict[str, np.ndarray]:
+    """Model rank ``rank``'s slabs of a full reference-layout state dict
+    (numpy): each key split on ``axes[key]`` (``parallel.tensor_parallel.
+    state_shardings`` of the port's module), None kept whole. The JAX
+    parameters, through the functions above, thus reach a tensor-parallel
+    rank of the port."""
+    out = {}
+    for k, v in sd.items():
+        v = np.asarray(v)
+        axis = axes.get(k)
+        if axis is None:
+            out[k] = v
+            continue
+        n = v.shape[axis] // size
+        out[k] = np.take(v, np.arange(rank * n, (rank + 1) * n), axis=axis)
+    return out
 
 
 def to_torch(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:

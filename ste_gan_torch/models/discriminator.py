@@ -13,6 +13,10 @@ returns feature maps channel-first (``[B, C, T]`` for the scale
 discriminators, ``[B, C, T/p, p]`` for the period ones; the JAX layout moves
 the channel axis last). Module paths follow the reference state-dict layout
 (``multi_pooled_disc.i.layers.j``, ``multi_scale_disc.i.output``).
+
+Under tensor parallelism each conv whose output channels are split
+computes its slab and gathers it (``ops/conv.py``): the feature maps, and
+so every loss, are full and equal on every model rank.
 """
 from __future__ import annotations
 

@@ -19,6 +19,13 @@ squares are all-reduced, with a gradient), and dropout masks drawn in the
 global batch's shape from the shared generator and sliced to the rank's
 rows, so the masks are those of one device.
 
+Under tensor parallelism (``parallel/tensor_parallel.py``) each ResBlock
+conv computes its output-channel slab and the BatchNorm after it runs on
+that slab with the slab's parameters and running statistics (over
+``group`` in train mode, as above); the block's output is gathered. The
+dense and attention layers split as ``models/transformer.py`` says. The
+GAN step's frozen encoder stays replicated.
+
 Takes channel-last ``[B, T, C]`` EMG; module paths follow the reference
 state-dict layout (``conv_blocks.i``, ``transformer.layers.i``).
 ``moe_experts > 0`` gives every transformer layer a mixture-of-experts FFN
@@ -39,6 +46,8 @@ from ste_gan_torch.models.transformer import (
     TransformerEncoderLayer, linear, torch_linear)
 from ste_gan_torch.ops.conv import Conv
 from ste_gan_torch.parallel.mesh import all_reduce_sum, rank_and_size
+from ste_gan_torch.parallel.tensor_parallel import (
+    copy_to_model, gather_from_model)
 
 
 def batch_norm(x, bn: nn.BatchNorm1d, dtype, train: bool = False,
@@ -85,6 +94,12 @@ def batch_norm(x, bn: nn.BatchNorm1d, dtype, train: bool = False,
                         bn.eps).to(dtype)
 
 
+def _slab_of(x, tp) -> torch.Tensor:
+    """This model rank's slab of the channels of ``x [B, C, T]``."""
+    n = x.shape[1] // tp.size
+    return x[:, tp.rank * n:(tp.rank + 1) * n]
+
+
 class ResBlock(nn.Module):
     """conv-BN-ReLU, conv-BN, plus a strided 1x1 conv + BN residual path."""
 
@@ -105,14 +120,26 @@ class ResBlock(nn.Module):
             self.res_norm = nn.BatchNorm1d(features, eps=1e-5, momentum=0.1)
 
     def forward(self, x, train: bool = False, group=None):
+        """``group``: the data-parallel ranks (train mode). Split convs
+        give their slabs to their BatchNorms; the output is gathered."""
         dt = self.dtype
-        h = F.relu(batch_norm(self.conv1(x), self.bn1, dt, train, group))
-        h = batch_norm(self.conv2(h), self.bn2, dt, train, group)
-        res = x
+        tp = self.conv1.tp
+        h = F.relu(batch_norm(self.conv1(x, gather=False), self.bn1, dt,
+                              train, group))
+        if tp is not None:
+            h = gather_from_model(h, 1, tp.group, tp.comm)
+        h = batch_norm(self.conv2(h, gather=False), self.bn2, dt, train,
+                       group)
         if self.residual_path is not None:
-            res = batch_norm(self.residual_path(x), self.res_norm, dt, train,
-                             group)
-        return F.relu(h + res)
+            res = batch_norm(self.residual_path(x, gather=False),
+                             self.res_norm, dt, train, group)
+        elif tp is not None:
+            res = _slab_of(copy_to_model(x, tp.group, tp.comm), tp)
+        else:
+            res = x
+        out = F.relu(h + res)
+        return out if tp is None else gather_from_model(out, 1, tp.group,
+                                                        tp.comm)
 
 
 class EMGEncoderTransformer(nn.Module):

@@ -17,6 +17,11 @@ concat, after every conv (at each conv's output rate) and before the tanh,
 as the JAX model does, so explicit padding equals the convs' boundary zero
 padding (bucketed and streaming inference). Without them the forward runs
 no mask at all.
+
+Under tensor parallelism every conv computes its output-channel slab and
+gathers it (``ops/conv.py``), and each embedding table split on ``dim``
+looks up its slab and gathers it, so the rest of the forward runs on full
+activations on every model rank.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import torch.nn.functional as F
 
 from ste_gan_torch import constants as C
 from ste_gan_torch.ops.conv import WNConv, upsample_nearest
+from ste_gan_torch.parallel.tensor_parallel import gather_from_model
 
 
 def _same_pad(kernel_size: int, dilation: int = 1) -> int:
@@ -54,6 +60,14 @@ def valid_mask(length: int, num_valid=None, valid_start=None,
 
 def _masked(h: torch.Tensor, keep: Optional[torch.Tensor]) -> torch.Tensor:
     return h if keep is None else torch.where(keep, h, 0)
+
+
+def _embed(table: nn.Embedding, ids) -> torch.Tensor:
+    """``table(ids)``; a table split on ``dim`` gathers its slabs."""
+    emb = table(ids)
+    tp = getattr(table, "tp", None)
+    return emb if tp is None else gather_from_model(emb, -1, tp.group,
+                                                    tp.comm)
 
 
 def _scaled(n, factor: int):
@@ -181,10 +195,11 @@ class EMGGeneratorGanTTS(nn.Module):
         b, t, _ = x.shape
         parts = [x]
         if self.session_embeddings is not None:
-            emb = self.session_embeddings(session_ids).to(self.dtype)
+            emb = _embed(self.session_embeddings, session_ids).to(self.dtype)
             parts.append(emb[:, None, :].expand(b, t, emb.shape[-1]))
         if self.speaking_mode_embeddings is not None:
-            emb = self.speaking_mode_embeddings(speaking_mode_ids).to(self.dtype)
+            emb = _embed(self.speaking_mode_embeddings,
+                         speaking_mode_ids).to(self.dtype)
             parts.append(emb[:, None, :].expand(b, t, emb.shape[-1]))
         x = torch.cat(parts, dim=-1).transpose(1, 2)
         num_valid, start = num_valid_frames, valid_start_frames

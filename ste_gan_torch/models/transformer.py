@@ -18,6 +18,14 @@ the frozen encoder of the GAN step) no dropout runs.
 ``moe_experts > 0`` swaps a layer's dense FFN for the mixture-of-experts
 block (``models/moe.py``, path ``moe_ffn``), followed by one dropout, as the
 JAX layer does; dense layers are unchanged.
+
+Under tensor parallelism (``parallel/tensor_parallel.py``) a split dense
+layer computes its output slab from its ``copy_to_model`` input and
+gathers it; ``w_q``/``w_k``/``w_v`` split on ``Dh`` give slabs of q/k/v
+that are gathered, so attention runs on full tensors; ``w_o`` splits on
+``D``; a split LayerNorm and the split relative-position table are
+gathered where they are used. Every dropout then draws its full-size mask
+from the same generator on every model rank.
 """
 from __future__ import annotations
 
@@ -29,15 +37,26 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ste_gan_torch.models.moe import MoEFeedForward
+from ste_gan_torch.parallel.tensor_parallel import (
+    copy_to_model, gather_from_model)
+
+
+def _tp(module: nn.Module):
+    """The module's ``ModelShard`` when its leaves are split, else None."""
+    return getattr(module, "tp", None)
 
 
 def linear(x, layer: nn.Linear, dtype):
     """``x @ W.T + b`` in ``dtype``, bias added after the product as in the
-    JAX ``Dense``."""
+    JAX ``Dense``. A split layer computes its slab of outputs and gathers
+    them."""
+    tp = _tp(layer)
+    if tp is not None:
+        x = copy_to_model(x, tp.group, tp.comm)
     y = torch.matmul(x.to(dtype), layer.weight.to(dtype).T)
     if layer.bias is not None:
         y = y + layer.bias.to(dtype)
-    return y
+    return y if tp is None else gather_from_model(y, -1, tp.group, tp.comm)
 
 
 def torch_linear(fan_in: int, fan_out: int, generator=None) -> nn.Linear:
@@ -76,8 +95,15 @@ def dropout(x, rate: float, generator: Optional[torch.Generator],
 
 
 def layer_norm(x, norm: nn.LayerNorm, dtype):
-    """LayerNorm with statistics in f32, result in ``dtype``."""
-    return norm(x.float()).to(dtype)
+    """LayerNorm with statistics in f32, result in ``dtype``; split
+    parameters are gathered first."""
+    tp = _tp(norm)
+    if tp is None:
+        return norm(x.float()).to(dtype)
+    weight = gather_from_model(norm.weight, 0, tp.group, tp.comm)
+    bias = gather_from_model(norm.bias, 0, tp.group, tp.comm)
+    return F.layer_norm(x.float(), norm.normalized_shape, weight, bias,
+                        norm.eps).to(dtype)
 
 
 class RelativePositionalLogits(nn.Module):
@@ -94,6 +120,8 @@ class RelativePositionalLogits(nn.Module):
         """q ``[B, H, L, Dh]`` -> positional logits ``[B, H, L, L]``."""
         length = q.shape[2]
         emb = self.embeddings[..., 0]
+        if _tp(self) is not None:
+            emb = gather_from_model(emb, 2, self.tp.group, self.tp.comm)
         if length >= self.max_distance:
             pad = length - self.max_distance
             table = F.pad(emb, (0, 0, pad, pad))
@@ -144,10 +172,19 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x, generator: Optional[torch.Generator] = None,
                 rows: Optional[Tuple[int, int]] = None):
         dt = self.dtype
+        tp = _tp(self)
+        split = tp.split if tp is not None else frozenset()
         xc = x.to(dt)
-        q = torch.einsum("btf,hfa->bhta", xc, self.w_q.to(dt))
-        k = torch.einsum("btf,hfa->bhta", xc, self.w_k.to(dt))
-        v = torch.einsum("btf,hfa->bhta", xc, self.w_v.to(dt))
+        if "w_q" in split:
+            xc = copy_to_model(xc, tp.group, tp.comm)
+
+        def project(w):
+            y = torch.einsum("btf,hfa->bhta", xc, w.to(dt))
+            if "w_q" not in split:
+                return y
+            return gather_from_model(y, -1, tp.group, tp.comm)
+
+        q, k, v = project(self.w_q), project(self.w_k), project(self.w_v)
         logits = torch.einsum("bhqa,bhka->bhqk", q, k).float() / math.sqrt(
             self.d_qkv)
         if self.relative_positional is not None:
@@ -155,7 +192,12 @@ class MultiHeadAttention(nn.Module):
         probs = dropout(torch.softmax(logits, dim=-1).to(dt),
                         self.dropout_rate, generator, rows)
         o = torch.einsum("bhqk,bhka->bhqa", probs, v)
-        return torch.einsum("bhta,haf->btf", o, self.w_o.to(dt))
+        if "w_o" not in split:
+            return torch.einsum("bhta,haf->btf", o, self.w_o.to(dt))
+        out = torch.einsum("bhta,haf->btf",
+                           copy_to_model(o, tp.group, tp.comm),
+                           self.w_o.to(dt))
+        return gather_from_model(out, -1, tp.group, tp.comm)
 
 
 class TransformerEncoderLayer(nn.Module):

@@ -24,6 +24,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ste_gan_torch.ops.grouped_conv import grouped_conv1d
+from ste_gan_torch.parallel.tensor_parallel import (
+    copy_to_model, gather_from_model, replicated_sum)
 
 IntOrPair = Union[int, Sequence[int]]
 
@@ -52,7 +54,10 @@ class _ConvBase(nn.Module):
     """Shared geometry of the convs. ``kernel_size``, ``stride``,
     ``padding`` and ``dilation`` are per spatial axis (rank 1 or 2).
     Weights and bias draw from ``generator`` with PyTorch's default conv
-    init, U(+-1/sqrt(fan_in))."""
+    init, U(+-1/sqrt(fan_in)). ``tp``: the layer's ``ModelShard`` once its
+    output channels are split (``tensor_parallel.shard_module_``)."""
+
+    tp = None
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: IntOrPair, stride: IntOrPair = 1,
@@ -70,6 +75,7 @@ class _ConvBase(nn.Module):
             raise ValueError("channels not divisible by groups")
         self.groups = groups
         self.dtype = dtype
+        self.in_channels = in_channels
         self.out_channels = out_channels
         wshape = (out_channels, in_channels // groups, *self.kernel_size)
         bound = 1.0 / math.sqrt((in_channels // groups)
@@ -83,13 +89,23 @@ class _ConvBase(nn.Module):
         raise NotImplementedError
 
     def _conv(self, x, w):
+        groups = self.groups if self.tp is None else self.tp.groups
         return conv(x.to(self.dtype), w.to(self.dtype), self.stride,
-                    self.padding, self.dilation, self.groups)
+                    self.padding, self.dilation, groups)
 
-    def _finish(self, y):
+    def _input(self, x):
+        """The input as this rank's slab reads it (all of it unsplit)."""
+        if self.tp is None:
+            return x
+        x = copy_to_model(x, self.tp.group, self.tp.comm)
+        return x if self.tp.in_slice is None else x[:, self.tp.in_slice]
+
+    def _finish(self, y, gather: bool = True):
         if self.bias is not None:
             y = y + self.bias.to(self.dtype).view(
                 (1, -1) + (1,) * (y.dim() - 2))
+        if self.tp is not None and gather:
+            y = gather_from_model(y, 1, self.tp.group, self.tp.comm)
         return y
 
 
@@ -99,8 +115,9 @@ class Conv(_ConvBase):
     def _make_weight(self, w, generator):
         self.weight = nn.Parameter(w)
 
-    def forward(self, x):
-        return self._finish(self._conv(x, self.weight))
+    def forward(self, x, gather: bool = True):
+        """``gather=False``: a split layer returns its output slab."""
+        return self._finish(self._conv(self._input(x), self.weight), gather)
 
 
 def norm_per_out_channel(v: torch.Tensor) -> torch.Tensor:
@@ -123,11 +140,19 @@ class WNConv(_ConvBase):
         return v * scale.to(v.dtype).view((-1,) + (1,) * (v.dim() - 1))
 
     def forward(self, x):
-        return self._finish(self._conv(x, self.weight()))
+        return self._finish(self._conv(self._input(x), self.weight()))
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x / (torch.linalg.vector_norm(x) + eps)
+
+
+def _dual_scale(y, sigma1, sigma2, dual_batch: int):
+    """The first ``dual_batch`` rows of ``y`` over ``sigma1``, the rest over
+    ``sigma2``."""
+    inv = torch.cat([(1.0 / sigma1).expand(dual_batch),
+                     (1.0 / sigma2).expand(y.shape[0] - dual_batch)])
+    return y * inv.to(y.dtype).view((-1,) + (1,) * (y.dim() - 1))
 
 
 class SNConv(_ConvBase):
@@ -152,35 +177,67 @@ class SNConv(_ConvBase):
             "weight_v", l2_normalize(w.reshape(w.shape[0], -1).T @ u,
                                      self.eps))
 
+    def _place(self):
+        """``(group, rank, comm)`` of this layer over the model ranks; an
+        unsplit layer is rank 0 of a group of one (None: no collective)."""
+        tp = self.tp
+        return (None, 0, None) if tp is None else (tp.group, tp.rank, tp.comm)
+
+    def _power_step(self, mat_ng, u):
+        """One power iteration ``v = norm(Wᵀu)``, ``u = norm(Wv)``; over the
+        model ranks ``W`` is this rank's rows, ``Wᵀu`` a sum of the ranks'
+        parts and ``Wv`` a gather of them."""
+        group, rank, comm = self._place()
+        rows = mat_ng.shape[0]
+        part = mat_ng.T @ u[rank * rows:(rank + 1) * rows]
+        v = l2_normalize(replicated_sum(part, group, comm), self.eps)
+        wv = gather_from_model(mat_ng @ v, 0, group, comm)
+        return l2_normalize(wv, self.eps), v
+
+    def _sigma(self, mat, u, v):
+        """``u @ W @ v``, with gradients through ``W`` only; over the model
+        ranks the sum of the ranks' rows (a ``replicated_sum``: every rank
+        scales the gathered output by it)."""
+        group, rank, comm = self._place()
+        rows = mat.shape[0]
+        return replicated_sum(u[rank * rows:(rank + 1) * rows] @ (mat @ v),
+                              group, comm)
+
     def forward(self, x, dual_batch: Optional[int] = None):
         kernel = self.weight_orig
-        mat = kernel.reshape(self.out_channels, -1).float()
+        mat = kernel.reshape(kernel.shape[0], -1).float()
         dual = self.training and dual_batch is not None
         with torch.no_grad():
             mat_ng = mat.detach()
             u, v = self.weight_u.clone(), self.weight_v.clone()
             if self.training:
-                v = l2_normalize(mat_ng.T @ u, self.eps)
-                u = l2_normalize(mat_ng @ v, self.eps)
+                u, v = self._power_step(mat_ng, u)
                 if dual:
                     u1, v1 = u, v
-                    v = l2_normalize(mat_ng.T @ u1, self.eps)
-                    u = l2_normalize(mat_ng @ v, self.eps)
+                    u, v = self._power_step(mat_ng, u1)
                 self.weight_u.copy_(u)
                 self.weight_v.copy_(v)
+        if self.tp is None and not dual:
+            # One sigma, one rank: the kernel is scaled before the conv, as
+            # the JAX package rounds it.
+            sigma = self._sigma(mat, u, v)
+            return self._finish(self._conv(x, kernel / sigma.to(kernel.dtype)))
+        # Otherwise sigma (two in the dual mode; gradients through the
+        # weight only) scales the output, gathered over the model ranks so
+        # that every rank uses it on the same full tensor, and the gathered
+        # bias follows.
+        group, _, comm = self._place()
+        y = gather_from_model(self._conv(self._input(x), kernel), 1, group,
+                              comm)
         if dual:
-            # Sigma has gradients through the weight only (u, v detached).
-            sigma1 = u1 @ (mat @ v1)
-            sigma2 = u @ (mat @ v)
-            y = self._conv(x, kernel)
-            inv = torch.cat([
-                (1.0 / sigma1).expand(dual_batch),
-                (1.0 / sigma2).expand(x.shape[0] - dual_batch)]).to(y.dtype)
-            y = y * inv.view((-1,) + (1,) * (y.dim() - 1))
-            return self._finish(y)
-        sigma = u @ (mat @ v)
-        y = self._conv(x, kernel / sigma.to(kernel.dtype))
-        return self._finish(y)
+            y = _dual_scale(y, self._sigma(mat, u1, v1),
+                            self._sigma(mat, u, v), dual_batch)
+        else:
+            y = y * (1.0 / self._sigma(mat, u, v)).to(y.dtype)
+        if self.bias is not None:
+            bias = gather_from_model(self.bias, 0, group, comm)
+            y = y + bias.to(self.dtype).view((1, -1) + (1,) * (y.dim() - 2))
+        return y
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,12 @@ replicates the leaves it cannot split. Per-rank memory falls about
 in JAX, and so does the frozen encoder (the port keeps it outside the
 train state).
 
+Hybrid FSDP x TP (``ste_gan_tpu/train/train_gan.py:129-135``): under
+tensor parallelism the group given here is the data group of the 2-D
+layout (``parallel/tensor_parallel.py``), and the parameters are the model
+rank's slabs, so each model rank's local leaves go into ``FlatShard``s
+over its data ranks: per-rank state falls to about ``1/(data x model)``.
+
 Why not FSDP2's ``fully_shard``: it turns parameters into DTensors and
 hooks module forwards and backwards, while this step calls
 ``torch.autograd.grad`` on explicit parameter lists, runs a hand kernel on

@@ -24,7 +24,11 @@ through a file in its directory instead of the TCP port.
 
     python -m ste_gan_torch.parallel.launch --num_processes 2 --steps 6 \\
         --ckpt_every 2 --run_dir /tmp/fleet [--device cpu] [--elastic] \\
-        [--fsdp] [--full]
+        [--fsdp] [--model_parallel P] [--full]
+
+``--model_parallel P`` runs the worker's tensor-parallel layout
+(``(ranks / P, P)``); an elastic fleet then keeps a multiple of ``P``
+ranks and never shrinks below ``P``.
 """
 from __future__ import annotations
 
@@ -117,8 +121,12 @@ def run_ranks(cmd: List[str], world: int, log_dir: Path, timeout: float,
 class FleetLauncher:
     """Start, supervise and recover one fleet of worker ranks."""
 
-    def __init__(self, args: argparse.Namespace):
+    def __init__(self, args: argparse.Namespace,
+                 env: Optional[dict] = None):
+        """``env``: variables every rank gets beyond this process's own
+        (e.g. ``STE_MP_CRASH``), without setting them here."""
         self.args = args
+        self.env = dict(env or {})
         self.run_dir = Path(args.run_dir)
         self.ckpt_dir = self.run_dir / "recovery"
         self.run_dir.mkdir(parents=True, exist_ok=True)
@@ -127,7 +135,12 @@ class FleetLauncher:
         # rank's host is gone); without, a restart starts the full fleet.
         self.world = args.num_processes
         self.elastic = bool(getattr(args, "elastic", False))
-        self.min_processes = int(getattr(args, "min_processes", 1))
+        self.model_parallel = max(1, int(getattr(args, "model_parallel", 1)))
+        self.min_processes = max(int(getattr(args, "min_processes", 1)),
+                                 self.model_parallel)
+        if self.world % self.model_parallel:
+            raise ValueError(f"--num_processes {self.world} is not a multiple "
+                             f"of --model_parallel {self.model_parallel}")
 
     # -- one attempt ------------------------------------------------------
     def _spawn(self, attempt: int, start_step: int,
@@ -150,6 +163,8 @@ class FleetLauncher:
             cmd += ["--restore_ckpt", str(restore)]
         if a.fsdp:
             cmd += ["--fsdp"]
+        if self.model_parallel > 1:
+            cmd += ["--model_parallel", str(self.model_parallel)]
         if a.deterministic:
             cmd += ["--deterministic"]
         if a.file_rendezvous:
@@ -159,8 +174,8 @@ class FleetLauncher:
         for rank in range(self.world):
             log = (out / f"log_p{rank}.txt").open("w")
             p = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
-                                 env=rank_env(rank, self.world, port,
-                                              a.master_addr))
+                                 env={**rank_env(rank, self.world, port,
+                                                 a.master_addr), **self.env})
             p._log_handle = log  # closed in _teardown
             procs.append(p)
         return procs, out
@@ -229,7 +244,9 @@ class FleetLauncher:
             if self.elastic and self.world > self.min_processes:
                 # The failed rank's capacity is taken as lost: continue on
                 # half the ranks from the full-state recovery point.
-                self.world = max(self.min_processes, self.world // 2)
+                half = self.world // 2 // self.model_parallel
+                self.world = max(self.min_processes,
+                                 half * self.model_parallel)
                 print(f"[launch] elastic: shrinking to {self.world} "
                       f"rank(s)", flush=True)
             world_sizes.append(self.world)
@@ -276,6 +293,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "full-state recovery point")
     ap.add_argument("--min_processes", type=int, default=1)
     ap.add_argument("--fsdp", action="store_true")
+    ap.add_argument("--model_parallel", type=int, default=1,
+                    help="the workers' tensor-parallel size")
     ap.add_argument("--deterministic", action="store_true",
                     help="the workers' --deterministic: reruns of the same "
                          "steps on a card agree bit for bit")

@@ -19,9 +19,9 @@ process per rank, and the port calls the collectives itself:
   coalesced f32 all-reduce (gloo has no ``AVG``: a sum, then a divide);
 * :func:`gather_rows` and :func:`all_reduce_sum` are collectives with a
   gradient, for losses that must see the global batch;
-* :func:`init_ranks` and :func:`check_data_parallel` are the trainer CLIs'
-  join and rank-count rule, :func:`round_robin` their validation split
-  (whole batches over the ranks).
+* :func:`init_ranks` is the trainer CLIs' join (their rank-count rule is
+  ``tensor_parallel.mesh_shape``), :func:`round_robin` their validation
+  split (whole batches over the ranks).
 
 Where the JAX trainer shrinks the data axis to a divisor of the global
 batch (``largest_divisor_mesh_size``), the port raises: a mesh can leave a
@@ -147,16 +147,6 @@ def check_divides(total: int, size: int, what: str) -> int:
             f"(launch a rank count that divides it, e.g. "
             f"{largest_divisor_mesh_size(total, size)})")
     return total // size
-
-
-def check_data_parallel(requested: int, size: int) -> None:
-    """The trainers' ``data_parallel`` setting against the ``size`` ranks
-    launched: a value above 0 must equal it (-1 or 0 take the launch)."""
-    if int(requested) > 0 and int(requested) != size:
-        raise ValueError(
-            f"data_parallel={requested} but {size} rank(s) were launched: "
-            f"start one process per rank (torchrun --nproc_per_node "
-            f"{requested}, or python -m ste_gan_torch.parallel.launch)")
 
 
 def round_robin(count: int, group: ProcessGroup) -> range:

@@ -7,8 +7,8 @@ one per rank with ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR`` and ``MASTER_PORT`` set::
 
     python -m ste_gan_torch.parallel.multiprocess --steps N --start_step K \\
-        --ckpt_every M --ckpt_dir D --out O [--fsdp] [--device cpu|cuda] \\
-        [--tiny|--full]
+        --ckpt_every M --ckpt_dir D --out O [--fsdp] [--model_parallel P] \\
+        [--device cpu|cuda] [--tiny|--full]
 
 * The batch of step ``i`` is a pure function of ``(seed, i)``; every rank
   makes the same global batch and takes its rows, so a run restarted at
@@ -21,10 +21,16 @@ one per rank with ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 * ``STE_MP_CRASH=<step>:<rank>:<flag>`` (fault injection) ends rank
   ``<rank>`` with ``os._exit`` just before step ``<step>``, creating
   ``<flag>`` first so that a restarted fleet runs on.
-* Each rank writes ``O/state_p{r}.npz`` (the final full state; not with
-  ``--no-save_state``), ``O/history_p{r}.json`` (per step: G and D losses,
-  ms of the step itself) and ``O/stats_p{r}.json`` (kernel launches,
-  collective ms per step, under FSDP the state bytes held).
+* ``--model_parallel P`` splits the ranks into ``(ranks / P, P)``
+  (``parallel/tensor_parallel.py``): each model rank holds output-channel
+  slabs of both networks, and the batch rows, gradient all-reduce and FSDP
+  shards go over the data ranks. ``--fsdp`` with it is hybrid FSDP x TP.
+* Each rank writes ``O/state_p{r}.npz`` (the final full state, gathered
+  over the model ranks; not with ``--no-save_state``),
+  ``O/history_p{r}.json`` (per step: G and D losses, ms of the step
+  itself) and ``O/stats_p{r}.json`` (kernel launches, collective ms per
+  step, the state bytes this rank holds, the tensor-parallel collectives'
+  calls, bytes and ms per step).
 * ``--deterministic`` makes two runs of the same steps on a card agree bit
   for bit (cuDNN's deterministic algorithms, TF32 off, PyTorch's
   deterministic kernels where it has them), as crash recovery checks.
@@ -51,9 +57,10 @@ from ste_gan_torch import constants as C
 from ste_gan_torch.config import Config
 from ste_gan_torch.device import resolve_device
 from ste_gan_torch.ops import kernel_launches
+from ste_gan_torch.parallel import tensor_parallel as tp
 from ste_gan_torch.parallel.mesh import (
     DEFAULT_TIMEOUT_S, GradientAllReduce, ProcessGroup, barrier,
-    init_ranks, rank_and_size, replicate_module, shard_batch)
+    init_ranks, rank_and_size, replicate_module)
 
 
 def tiny_setup(device=None, seed: int = 0):
@@ -188,39 +195,57 @@ def run_steps(cfg: Config, models, n_steps: int, seed: int = 0,
               fsdp: bool = False, start_step: int = 0,
               restore_ckpt: Optional[Path] = None, ckpt_every: int = 0,
               ckpt_dir: Optional[Path] = None, group: ProcessGroup = None,
-              timed: bool = False) -> Tuple[Dict, List[Dict], Dict]:
+              timed: bool = False, model_parallel: int = 1
+              ) -> Tuple[Dict, List[Dict], Dict]:
     """``n_steps`` fused GAN steps over the ranks of ``group`` (one
     process alone when None) from ``start_step``, on :func:`seeded_batch`
-    rows. Returns ``(full state tree, history, stats)``: the tree in
-    ``train.gan.state_tree``'s layout (under FSDP gathered: a collective),
-    per step ``{"step", "G", "D", "ms"}``, and the collectives' seconds.
-    ``timed`` synchronises the card around each collective to time it."""
+    rows. ``model_parallel > 1`` splits the ranks into ``(data, model)``
+    (``tensor_parallel.create_mesh_2d``) and both networks into slabs.
+    Returns ``(full state tree, history, stats)``: the tree in
+    ``train.gan.state_tree``'s layout (gathered under FSDP and tensor
+    parallelism: a collective), per step ``{"step", "G", "D", "ms"}``, and
+    the collectives' seconds. ``timed`` synchronises the card around each
+    collective to time it."""
     from ste_gan_torch.parallel.fsdp import fsdp_wrap_gan_step
     from ste_gan_torch.train.gan import init_state, make_train_step, state_tree
 
     rank, size = rank_and_size(group)
+    mesh = (tp.create_mesh_2d(-1, model_parallel, group) if group is not None
+            else tp.Mesh2D(None, None, None))
+    if mesh.model_size != model_parallel:
+        raise ValueError(f"model_parallel={model_parallel} needs a group of "
+                         f"ranks")
     dev = next(models.generator.parameters()).device
     state = init_state(cfg, models)
     if restore_ckpt is not None:
         restore_state(restore_ckpt, models, state)
     for module in (models.generator, models.discriminator, models.encoder):
         replicate_module(module, group)
+    if mesh.model_size > 1:
+        tp.shard_state(models, state, mesh)
     if fsdp:
-        step, sharded = fsdp_wrap_gan_step(cfg, models, state, group,
+        step, sharded = fsdp_wrap_gan_step(cfg, models, state, mesh.data,
                                            timed=timed)
-        full_tree = sharded.state_tree
+        local_tree = sharded.state_tree
         comm = sharded
     else:
-        comm = GradientAllReduce(group, timed=timed)
-        step = make_train_step(cfg, models, group=group, update=comm)
-        full_tree = lambda: state_tree(models, state)  # noqa: E731
+        comm = GradientAllReduce(mesh.data, timed=timed)
+        step = make_train_step(cfg, models, group=mesh.data, update=comm)
+        local_tree = lambda: state_tree(models, state)  # noqa: E731
+    axes = tp.gan_state_axes(models)
+
+    def full_tree():
+        return (tp.unshard_state(local_tree(), axes, mesh)
+                if mesh.model_size > 1 else local_tree())
+
     crash = _crash_plan()
     history = []
+    mesh.comm.timed = timed
     for i in range(start_step, start_step + n_steps):
         if crash is not None and i == crash[0] and rank == crash[1]:
             Path(crash[2]).touch()  # disarm before dying
             os._exit(17)
-        batch = shard_batch(seeded_batch(cfg, seed, i), rank, size, dev)
+        batch = tp.shard_batch_2d(seeded_batch(cfg, seed, i), mesh, dev)
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         history.append({"step": i, "G": float(metrics["loss/generator"]),
@@ -228,10 +253,15 @@ def run_steps(cfg: Config, models, n_steps: int, seed: int = 0,
                         "ms": 1e3 * (time.perf_counter() - t0)})
         if ckpt_every and ckpt_dir is not None and (i + 1) % ckpt_every == 0:
             save_recovery_point(full_tree(), Path(ckpt_dir), i + 1, group)
-    stats = {"ranks": size, "comm_s": comm.comm_s,
-             "comm_ms_per_step": 1e3 * comm.comm_s / max(1, n_steps)}
-    if fsdp:
-        stats["persistent_bytes"] = sharded.persistent_bytes()
+    steps = max(1, n_steps)
+    stats = {"ranks": size, "data_parallel": mesh.data_size,
+             "model_parallel": mesh.model_size, "comm_s": comm.comm_s,
+             "comm_ms_per_step": 1e3 * comm.comm_s / steps,
+             "tp_calls_per_step": mesh.comm.calls / steps,
+             "tp_mb_per_step": mesh.comm.bytes / steps / 2**20,
+             "tp_comm_ms_per_step": 1e3 * mesh.comm.seconds / steps,
+             "persistent_bytes": (sharded.persistent_bytes() if fsdp
+                                  else tp.tp_state_bytes(models, state))}
     return full_tree(), history, stats
 
 
@@ -263,7 +293,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "encoder (else its seeded random weights)")
     ap.add_argument("--out", type=Path, required=True)
     ap.add_argument("--fsdp", action="store_true",
-                    help="store the train state sharded over the ranks")
+                    help="store the train state sharded over the (data) "
+                         "ranks")
+    ap.add_argument("--model_parallel", type=int, default=1,
+                    help="tensor-parallel size: the ranks form (ranks / P, "
+                         "P) and each model rank holds slabs of both "
+                         "networks")
     ap.add_argument("--grad_accum", type=int, default=1)
     ap.add_argument("--save_state", action=argparse.BooleanOptionalAction,
                     default=True, help="write state_p{r}.npz")
@@ -310,7 +345,7 @@ def main(argv=None) -> None:
             cfg, models, args.steps, fsdp=args.fsdp,
             start_step=args.start_step, restore_ckpt=args.restore_ckpt,
             ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir, group=group,
-            timed=True)
+            timed=True, model_parallel=args.model_parallel)
         stats["launches"] = kernel_launches()
         stats["device"] = str(dev)
         stats["seconds"] = {"group": t_group, "setup": t_setup,

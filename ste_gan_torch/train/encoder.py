@@ -35,12 +35,19 @@ batch and runs its ``n_win / N`` windows (N must divide the fold's window
 count), and the step computes the JAX mesh's global quantities
 (:func:`make_encoder_train_step`). Validation splits the dev batches over
 the ranks and sums the results; rank 0 alone writes the logs and
-checkpoints. Not ported: tensor and pipeline parallelism
-(``--model_parallel``, ``--pipeline_stages`` above 1 and
+checkpoints.
+
+``--model_parallel P`` splits the ranks into ``(data, model) = (ranks / P,
+P)`` (``parallel/tensor_parallel.py``): each model rank keeps its
+output-channel slabs of the encoder (BatchNorm statistics per slab) and of
+its AdamW moments, the fold's windows and the gradient sum go over the
+data ranks, and the checkpoints are gathered to the reference layout
+first. As in JAX, ``--pipeline_stages`` above 1 with it raises. Not
+ported: pipeline parallelism (``--pipeline_stages`` above 1 and
 ``--pipeline_microbatches`` above 0 raise), an MoE encoder over several
-ranks (its capacity and token dropping are global in JAX: expert
-parallelism), and the host-fold training path (``--no-device_resident_data``
-raises).
+ranks or at ``--model_parallel`` above 1 (its capacity and token dropping
+are global in JAX: expert parallelism), and the host-fold training path
+(``--no-device_resident_data`` raises).
 
 ``--emg_enc_cfg configs/emg_encoder/conv_transformer_moe.yaml`` trains the
 mixture-of-experts encoder: the step adds ``MOE_AUX_WEIGHT`` (0.01) times
@@ -77,6 +84,7 @@ from ste_gan_torch.ops.dtw import dtw_alignment_batched
 from ste_gan_torch.ops.fused_adamw import (
     AdamWState, adamw_init, fused_adamw_, set_learning_rate)
 from ste_gan_torch.parallel import mesh
+from ste_gan_torch.parallel import tensor_parallel as tp
 from ste_gan_torch.train.encoder_data import (
     EncoderDeviceCorpus, SizeAwareSampler, fold_encoder_batch,
     windows_needed)
@@ -435,17 +443,19 @@ def _save_state_dict(state_dict: Dict[str, torch.Tensor], path: Path) -> None:
 
 def _check_parallel(data_parallel: int, model_parallel: int,
                     pipeline_stages: int, pipeline_microbatches: int = 0,
-                    size: int = 1) -> None:
-    """Raise for what the port cannot run over ``size`` launched ranks."""
-    for name, value, most, item in (
-            ("model_parallel", model_parallel, 1, "1, tensor_parallel.py"),
-            ("pipeline_stages", pipeline_stages, 1, "2, pipeline_parallel.py"),
-            ("pipeline_microbatches", pipeline_microbatches, 0,
-             "2, pipeline_parallel.py")):
+                    size: int = 1) -> Tuple[int, int]:
+    """Raise for what the port cannot run over ``size`` launched ranks;
+    returns ``(data, model)``."""
+    if int(pipeline_stages) > 1 and int(model_parallel) > 1:
+        raise ValueError("pipeline_stages and model_parallel are mutually "
+                         "exclusive (as in the JAX trainer)")
+    for name, value, most in (("pipeline_stages", pipeline_stages, 1),
+                              ("pipeline_microbatches", pipeline_microbatches,
+                               0)):
         if int(value) > most:
             raise ValueError(f"{name}={value}: not ported yet (ROADMAP.md §1 "
-                             f"item {item})")
-    mesh.check_data_parallel(data_parallel, size)
+                             f"item 2, pipeline_parallel.py)")
+    return tp.mesh_shape(size, data_parallel, max(1, int(model_parallel)))
 
 
 def train_encoder_model(cfg: Config, trainset: EMGDataset, devset: EMGDataset,
@@ -469,7 +479,8 @@ def train_encoder_model(cfg: Config, trainset: EMGDataset, devset: EMGDataset,
     module docstring)."""
     rank, size = mesh.rank_and_size(group)
     lead = rank == 0
-    _check_parallel(data_parallel, model_parallel, pipeline_stages, size=size)
+    _, model_size = _check_parallel(data_parallel, model_parallel,
+                                    pipeline_stages, size=size)
     dev = resolve_device(device)
     output_directory = Path(output_directory)
     if len(trainset) == 0 or len(devset) == 0:
@@ -482,11 +493,29 @@ def train_encoder_model(cfg: Config, trainset: EMGDataset, devset: EMGDataset,
     model = init_emg_encoder(
         cfg, torch.float32,
         torch.Generator().manual_seed(C.RANDOM_SEED)).to(dev)
+    if model_size > 1 and model.moe_experts > 0:
+        raise ValueError(
+            "an MoE encoder at model_parallel > 1: its capacity and token "
+            "dropping are global over the batch, which needs expert "
+            "parallelism, not ported yet (ROADMAP.md §1 item 3, "
+            "expert_parallel.py)")
     mesh.replicate_module(model, group)
+    layout = (tp.create_mesh_2d(data_parallel, model_size, group)
+              if group is not None else tp.Mesh2D(None, None, None))
+    tp.shard_module_(model, layout)
+    data_group = layout.data
+
+    def full_state_dict(sd: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+        """``sd`` (this rank's slabs) in the reference layout: gathered over
+        the model ranks (a collective)."""
+        if layout.model_size == 1:
+            return sd
+        return tp.gather_state_dict(model, layout, sd)
 
     window = EC.SEQ_LEN * 8
     n_win = max(1, -(-max_len // window))
-    mesh.check_divides(n_win, size, "fold's window count")
+    mesh.check_divides(n_win, layout.data_size, "fold's window count")
     # Eval batches can need more windows than the training budget.
     eval_lengths = sorted(devset.emg_lengths, reverse=True)[:EC.BATCH_SIZE]
     n_win_eval = max(n_win, windows_needed(eval_lengths, EC.SEQ_LEN))
@@ -513,7 +542,7 @@ def train_encoder_model(cfg: Config, trainset: EMGDataset, devset: EMGDataset,
     state = init_train_state(model)
     train_step = make_encoder_train_step(model, max_samples,
                                          silent_pred_frames=silent_pred_frames,
-                                         group=group)
+                                         group=data_group)
     writer = MetricLogger(output_directory) if lead else None
     eval_step = make_encoder_eval_step(model, max_samples)
     device_corpus = EncoderDeviceCorpus(
@@ -537,16 +566,19 @@ def train_encoder_model(cfg: Config, trainset: EMGDataset, devset: EMGDataset,
     best_dirty = last_dirty = False
 
     def flush_checkpoints(force: bool = False) -> None:
+        """Every rank calls it (the gather over the model ranks is a
+        collective); rank 0 writes."""
         nonlocal best_dirty, last_dirty
-        if not lead:
-            return
         if best_dirty:
-            _save_state_dict(best_snapshot,
-                             output_directory / "best_val_loss_model.pt")
+            sd = full_state_dict(best_snapshot)
+            if lead:
+                _save_state_dict(sd,
+                                 output_directory / "best_val_loss_model.pt")
             best_dirty = False
         if last_dirty and (force or save_interval_epochs > 0):
-            _save_state_dict(model.state_dict(),
-                             output_directory / "last_model.pt")
+            sd = full_state_dict(model.state_dict())
+            if lead:
+                _save_state_dict(sd, output_directory / "last_model.pt")
             last_dirty = False
 
     def batches():
@@ -593,7 +625,7 @@ def train_encoder_model(cfg: Config, trainset: EMGDataset, devset: EMGDataset,
 
             val_start = time.time()
             val, phoneme_acc, _ = evaluate(eval_step, devset, n_win_eval,
-                                           max_samples, dev, group=group)
+                                           max_samples, dev, group=data_group)
             val_s = time.time() - val_start
             if lead:
                 writer.scalar("val/loss", val, batch_idx)
@@ -768,12 +800,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="Storage precision of the train split on the "
                              "device.")
     parser.add_argument("--data_parallel", type=int, default=-1,
-                        help="Data-parallel rank count; when above 0 it must "
-                             "equal the ranks launched (torchrun "
-                             "--nproc_per_node N).")
+                        help="Data-parallel rank count; when above 0, it "
+                             "times --model_parallel must equal the ranks "
+                             "launched (torchrun --nproc_per_node N).")
     parser.add_argument("--model_parallel", type=int, default=1,
-                        help="Tensor-parallel size; not ported yet, a value "
-                             "above 1 raises.")
+                        help="Tensor-parallel size: the ranks form (ranks / "
+                             "P, P) and each model rank holds output-channel "
+                             "slabs of the encoder "
+                             "(parallel/tensor_parallel.py).")
     parser.add_argument("--pipeline_stages", type=int, default=1,
                         help="Pipeline depth; not ported yet, a value above "
                              "1 raises.")

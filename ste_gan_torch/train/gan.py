@@ -46,6 +46,15 @@ weights. The gradients come from ``torch.autograd.grad``, which
 ``DistributedDataParallel``'s hooks never see, so the all-reduce is
 explicit. ``update`` replaces the all-reduce-then-AdamW of one network:
 ``parallel/fsdp.py`` passes a reduce-scatter onto sharded state.
+
+Under tensor parallelism (``parallel/tensor_parallel.py``) the models hold
+a model rank's output-channel slabs and run the partitioning themselves
+(gathers after split layers, sums of input gradients), so every loss is
+whole and equal on the model ranks of a data rank. The step is unchanged:
+``group`` is then the data group of the 2-D layout, each gradient is a
+local slab's (a replicated leaf's is the same on every model rank), one
+all-reduce per network goes over the data ranks only, AdamW and the EMA
+run on the local slabs, and the metrics are reduced over the data ranks.
 """
 from __future__ import annotations
 
@@ -203,8 +212,9 @@ def make_train_step(cfg: Config, models: GANModels, group=None,
     """Returns ``train_step(state, batch) -> (state, metrics)``; the models'
     parameters and the state update in place.
 
-    ``group``: the ranks of a data-parallel run, each passing its share of
-    the global batch; the metrics come back reduced over them.
+    ``group``: the ranks of a data-parallel run (under tensor parallelism
+    the data group), each passing its share of the global batch; the
+    metrics come back reduced over them.
     ``update(name, opt, grads)`` applies one network's gradients (``name``
     ``"d"`` or ``"g"``); by default they are averaged over ``group``
     (``parallel.mesh.GradientAllReduce``) and AdamW runs on them."""

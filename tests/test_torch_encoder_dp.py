@@ -164,6 +164,8 @@ def test_an_moe_encoder_over_two_ranks_raises(setup):
     ("pipeline_stages", "pipeline_parallel.py"),
     ("pipeline_microbatches", "pipeline_parallel.py")])
 def test_what_is_not_ported_raises_naming_its_module(flag, module):
+    # model_parallel is ported: at one rank a (1, 2) layout cannot be
+    # placed, and the error names the module that lays the ranks out.
     kwargs = dict(data_parallel=-1, model_parallel=1, pipeline_stages=1,
                   pipeline_microbatches=0)
     kwargs[flag] = 2

@@ -11,11 +11,18 @@ without the crash (rtol 2e-5 / atol 2e-6, as ``tests/test_launch.py``).
   with one rank from the step-2 recovery point. Against the same schedule
   without the crash: the uninterrupted run's step-2 recovery point, run on
   to step 6 by one rank in this process.
+* Elastic recovery under tensor parallelism, 4 ranks at ``(data, model)
+  = (2, 2)`` -> 2 ranks at (1, 2): rank 1 dies before step 3, the fleet
+  keeps a multiple of ``--model_parallel`` ranks. Against the same
+  schedule without the crash: the worker at (2, 2) for steps 0-1, then at
+  (1, 2) from its step-2 recovery point.
+* A rank count that ``--model_parallel`` does not divide is refused.
 
 Each attempt's ranks rendezvous through a file in the attempt's directory.
 """
 import argparse
 import os
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -23,7 +30,8 @@ import pytest
 import torch
 
 from ste_gan_torch.parallel import launch
-from ste_gan_torch.parallel.launch import FleetLauncher, latest_recovery_point
+from ste_gan_torch.parallel.launch import (
+    FleetLauncher, latest_recovery_point, run_ranks)
 from ste_gan_torch.parallel.multiprocess import (
     flatten_state, run_steps, tiny_setup)
 
@@ -38,14 +46,19 @@ def _args(run_dir: Path, *more) -> argparse.Namespace:
         "--timeout_s", "90", "--device", "cpu", "--file_rendezvous", *more])
 
 
+def _rank_env() -> dict:
+    return {"OMP_NUM_THREADS": "1",
+            "PYTHONPATH": os.pathsep.join(
+                [str(ROOT)] + ([os.environ["PYTHONPATH"]]
+                               if os.environ.get("PYTHONPATH") else []))}
+
+
 def _fleet(run_dir: Path, crash: str = "", *more) -> dict:
     """Run a fleet with ``STE_MP_CRASH=crash`` (none when empty) in the
     ranks' environment; returns the launcher's summary."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("OMP_NUM_THREADS", "1")
-        mp.setenv("PYTHONPATH", os.pathsep.join(
-            [str(ROOT)] + ([os.environ["PYTHONPATH"]]
-                           if os.environ.get("PYTHONPATH") else [])))
+        for key, value in _rank_env().items():
+            mp.setenv(key, value)
         if crash:
             mp.setenv("STE_MP_CRASH", crash)
         else:
@@ -140,6 +153,64 @@ class TestElasticRecovery:
         finally:
             torch.set_num_threads(threads)
         _assert_close(_final(summary), flatten_state(tree), "elastic fleet")
+
+
+@pytest.fixture(scope="module")
+def elastic_tp(tmp_path_factory):
+    """Four ranks at (2, 2); rank 1 dies just before step 3."""
+    run_dir = tmp_path_factory.mktemp("elastic_tp")
+    flag = run_dir / "crash.flag"
+    return run_dir, flag, _fleet(run_dir, f"3:1:{flag}", "--elastic",
+                                 "--num_processes", "4",
+                                 "--model_parallel", "2")
+
+
+def _worker(run_dir: Path, name: str, world: int, *flags) -> Path:
+    """The worker on ``world`` CPU ranks at ``--model_parallel 2``."""
+    out = run_dir / name
+    rendezvous = f"file://{(run_dir / f'{name}.rendezvous').resolve()}"
+    run_ranks([sys.executable, "-m", "ste_gan_torch.parallel.multiprocess",
+               "--device", "cpu", "--tiny", "--model_parallel", "2",
+               "--timeout_s", "90", "--init_method", rendezvous, "--out",
+               str(out), *flags], world, run_dir / f"{name}_logs", 240,
+              env=_rank_env())
+    return out
+
+
+class TestElasticTensorParallel:
+    def test_world_shrank_to_a_multiple_of_model_parallel(self, elastic_tp):
+        run_dir, flag, summary = elastic_tp
+        assert flag.exists(), "fault injection never fired"
+        assert summary["ok"] and summary["restarts"] == 1
+        assert summary["world_sizes"] == [4, 2]
+        assert summary["recovered_from"] == [2]
+        out = Path(summary["final_out"])
+        assert (out / "state_p1.npz").exists()
+        assert not (out / "state_p2.npz").exists()
+        assert (run_dir / "attempt_0" / "log_p3.txt").exists()
+
+    def test_shrunk_fleet_continues_the_trajectory(self, elastic_tp,
+                                                   tmp_path):
+        """The same schedule without the crash: (2, 2) for steps 0-1,
+        then (1, 2) from that run's step-2 recovery point; both model
+        ranks end with the same full state."""
+        _, _, summary = elastic_tp
+        ckpt = tmp_path / "recovery"
+        _worker(tmp_path, "first", 4, "--steps", "2", "--ckpt_every", "2",
+                "--ckpt_dir", str(ckpt))
+        out = _worker(tmp_path, "rest", 2, "--steps", str(STEPS - 2),
+                      "--start_step", "2", "--restore_ckpt",
+                      str(ckpt / "step_2.pt"))
+        want = dict(np.load(out / "state_p0.npz"))
+        _assert_close(_final(summary), want, "elastic (2, 2) -> (1, 2)")
+        _assert_close(_final(summary, 1), want, "its second model rank")
+
+
+def test_rank_count_must_be_a_multiple_of_model_parallel(tmp_path):
+    with pytest.raises(ValueError, match="not a multiple of "
+                                         "--model_parallel 2"):
+        FleetLauncher(_args(tmp_path, "--num_processes", "3",
+                            "--model_parallel", "2"))
 
 
 def test_latest_recovery_point_skips_torn_writes(tmp_path):

@@ -222,10 +222,12 @@ def test_a_rank_count_that_does_not_divide_the_batch_raises():
 
 
 def test_the_trainers_rank_count_rule_and_validation_split(monkeypatch):
+    from ste_gan_torch.parallel.tensor_parallel import mesh_shape
+
     for requested in (-1, 0, 2):
-        mesh.check_data_parallel(requested, 2)
-    with pytest.raises(ValueError, match="data_parallel=4 but 2 rank"):
-        mesh.check_data_parallel(4, 2)
+        assert mesh_shape(2, requested, 1) == (2, 1)
+    with pytest.raises(ValueError, match="data_parallel 4 .* but 2 rank"):
+        mesh_shape(2, 4, 1)
     assert list(mesh.round_robin(5, None)) == [0, 1, 2, 3, 4]
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     assert mesh.init_ranks() == (0, None, False)  # no WORLD_SIZE: no group

@@ -179,8 +179,9 @@ def test_device_resident_corpus_matches_the_host_pipeline(corpus, tmp_path):
 
 
 def test_single_device_only_and_no_silent_cpu(corpus, tmp_path, monkeypatch):
-    """Tensor parallelism is not ported; a data-parallel size other than
-    the ranks launched (one here) raises; FSDP runs (its tests are in
+    """A tensor- or data-parallel layout that does not fit the ranks
+    launched (one here) raises (tensor parallelism over several ranks is
+    in tests/test_torch_tp_trainers.py); FSDP runs (its tests are in
     tests/test_torch_trainer_dp.py)."""
     for field, value in (("model_parallel", 2), ("data_parallel", 2)):
         cfg = tiny_cfg(TConfig(), corpus)
