@@ -151,10 +151,28 @@ Phases, each fatal on failure:
 16. ``[sp]``: ``python -m ste_gan_torch.parallel.sequence_parallel`` at
    full width on 2 gloo ranks (500 and 1,500 frames) and 4 (200 frames,
    three hops), each against one-device synthesis (TF32 off), ms per call;
-17. the ``kernels`` JSON line (each kernel's launches on the main path,
-   under ``dist_launches`` on the [dist] paths and under ``tp_launches`` on
-   the [tp] paths, per rank, with the shapes held in each), the card line,
-   and the last line ``{"ok": true, "device": {...}}``.
+17. ``[pp]``, ``[ep]``, ``[axes]``: pipeline and expert parallelism on the
+   one card, gloo ranks sharing it (``check_pp_ep_kernels``, ``check_pp``,
+   ``check_ep_axes``): AdamW against its plain version at each per-rank
+   set (a stage of the full encoder at 2 and 3 stages, an expert rank of
+   the MoE encoder at expert axis 2, the axes worker's sets); the
+   full-width encoder at 2 stages of 80 one-window microbatches (one
+   fold's forward and gradients against world 1, four trainer steps
+   against world 1's losses and weights, ms/step, messages and state
+   bytes per rank, and a control without the stage-group gradient sum
+   that the weight gate must catch) beside one voiced epoch of
+   ``train.encoder --pipeline_stages 2`` against [encoder-trainer]'s first
+   epoch; the full-width MoE encoder at ``(data, expert) = (1, 2)`` and
+   ``(2, 1)``, two steps each at the configuration's capacity and at a
+   dropping one (losses and dropped picks against world 1, collectives,
+   state bytes) and a control with local slot offsets; both modes of
+   ``python -m ste_gan_torch.parallel.multiprocess_axes`` on two processes
+   against its one-process oracle, the processes' dumps equal;
+18. the ``kernels`` JSON line (each kernel's launches on the main path,
+   under ``dist_launches`` on the [dist] paths, ``tp_launches`` on the
+   [tp] paths and ``pp_ep_axes_launches`` on the [pp], [ep] and [axes]
+   paths, per rank, with the shapes held in each), the card line, and the
+   last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, when no CUDA device is present or when
 run outside a checkout of the repository. Details go to
@@ -3457,6 +3475,728 @@ def check_sp(torch, card):
     return report
 
 
+# ---------------------------------------------------------------------------
+# [pp], [ep], [axes]: pipeline and expert parallelism and the axes worker
+# ---------------------------------------------------------------------------
+
+#: Steps of [pp]'s trainer step, pipelined and at world 1 (the last one
+#: times the point-to-point messages), and of its control.
+PP_STEPS, PP_CONTROL_STEPS = 3, 1
+#: Forward and gradients of one full-width fold, pipelined against world 1
+#: at the pipeline's microbatch shapes: max |difference| / max |world 1|
+#: per tensor (a conv bias that feeds a BatchNorm, whose true gradient is
+#: 0, against its weight's gradient). The outputs and the loss are held to
+#: it against the whole-batch call too.
+PP_GRAD_RTOL = 1e-5
+#: The pipelined trainer CLI's first voiced epoch against [encoder-trainer]'s
+#: world 1 (relative).
+PP_EPOCH_RTOL = 1e-6
+#: Steps of each [ep] run, and the capacity factor at which picks drop.
+EP_STEPS, EP_DROPPING_FACTOR = 2, 0.5
+#: [ep]'s losses against world 1's (relative). The picks dropped must equal
+#: world 1's in the first step, from the same weights; after an update a
+#: data axis's own rounding (a gradient summed from two halves, BatchNorm
+#: statistics from all-reduced sums) may move a pick that lies within
+#: rounding of a tie, so later steps' counts are reported.
+EP_LOSS_RTOL = 1e-4
+#: [axes]: the JAX worker test's tolerances (tests/test_multiprocess_axes.py).
+AXES_FWD_TOL = dict(rtol=1e-4, atol=2e-6)
+AXES_GRAD_TOL = dict(rtol=1e-3, atol=1e-5)
+#: The encoder's AdamW hyperparameters (``train.encoder.make_optimizer``).
+ENC_HYPER = dict(lr=3e-4, b1=0.9, b2=0.999, weight_decay=1e-5)
+
+
+def _rank_program(fn: str, *args) -> list:
+    """A rank command that runs ``chip_smoke.<fn>(*args)``."""
+    return [sys.executable, "-c",
+            f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            f"import chip_smoke; chip_smoke.{fn}(*sys.argv[1:])",
+            *[str(a) for a in args]]
+
+
+def _bn_fed(name: str) -> bool:
+    """A conv bias that a BatchNorm follows (no true gradient)."""
+    parts = name.split(".")
+    return (parts[0] == "conv_blocks" and parts[-1] == "bias"
+            and parts[2] in ("conv1", "conv2", "residual_path"))
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _rank_setup(enc_yaml: str, **params):
+    """A rank of [pp] or [ep]: gloo on this card, the worker's
+    ``--deterministic`` settings (TF32 off, deterministic kernels: a rerun
+    of the same call agrees bit for bit, so only the parallel layout can
+    part two runs); a factory of copies of one seeded full-width encoder,
+    a folded batch of 80 windows (the 128k packing budget) and its
+    ``max_samples``."""
+    import copy
+
+    import torch
+
+    from ste_gan_torch.config import load_config
+    from ste_gan_torch.models.emg_encoder import init_emg_encoder
+    from ste_gan_torch.parallel import mesh
+    from ste_gan_torch.parallel.multiprocess import deterministic
+    from ste_gan_torch.train.encoder_data import fold_encoder_batch
+
+    deterministic()
+    mesh.init_distributed("gloo", 600, "cuda")
+    cfg = load_config(emg_enc_cfg=str(ROOT / "configs" / "emg_encoder"
+                                      / enc_yaml))
+    cfg.emg_encoder.params = dict(cfg.emg_encoder.params, **params)
+    template = init_emg_encoder(cfg, torch.float32,
+                                torch.Generator().manual_seed(0)).cuda()
+
+    def fresh():
+        return copy.deepcopy(template)
+
+    host = fold_encoder_batch(encoder_items(np.random.default_rng(8),
+                                            128_000),
+                              n_win=80, max_samples=160).as_dict()
+    batch = {k: torch.from_numpy(np.asarray(v)).cuda()
+             for k, v in host.items()}
+    return fresh, batch, 160
+
+
+def _params_host(model) -> dict:
+    return {n: p.detach().cpu().numpy().astype(np.float64)
+            for n, p in model.named_parameters()}
+
+
+def _held_bytes(state, model) -> int:
+    """Train-state bytes a rank holds: its parameters, both AdamW moments
+    and the buffers."""
+    return sum(t.numel() * t.element_size() for t in (
+        *state.opt.params, *state.opt.exp_avg, *state.opt.exp_avg_sq,
+        *model.buffers()))
+
+
+def pp_rank(out: str) -> None:
+    """One of [pp]'s two gloo ranks (``check_pp``), full width
+    (``conv_transformer.yaml``), TF32 off, 2 stages of 3 layers, 80
+    microbatches of one window. World 1 runs twice: as the one-device
+    call (``__call__``, and the trainer step as the CLI runs it) and as the
+    one-device call at the pipeline's microbatch shapes (``pipelined`` over
+    a one-stage layout: the stack applied one microbatch at a time, JAX's
+    oracle in ``tests/test_pipeline_parallel.py``). Only the latter rounds
+    each layer's products as the stages do, so only it can agree to float
+    precision: at full width, a few of the ReLUs' ~25 M pre-activations
+    per layer lie within rounding of 0, and a sign that flips moves a
+    weight gradient by one token's share.
+
+    1. one fold, train mode (shift 3, dropout masks from one seed): the
+       pipelined outputs, loss and gradients (summed by
+       ``allreduce_stage_grads_``) against both world-1 calls;
+    2. the trainer's step (``make_encoder_train_step``) ``PP_STEPS`` times,
+       pipelined and at world 1 both ways, from the same seeded weights:
+       losses, ms/step, point-to-point messages, bytes and (last step) ms,
+       state bytes, and the gathered weights' deviation from each world
+       1's;
+    3. the control: ``PP_CONTROL_STEPS`` pipelined steps without the
+       stage-group sum of the replicated gradients, against world 1 at
+       microbatch shapes.
+
+    Writes ``pp_r{rank}.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from ste_gan_torch.ops import kernel_launches
+    from ste_gan_torch.parallel import pipeline_parallel as pp
+    from ste_gan_torch.train import encoder as tenc
+
+    fresh, batch, max_samples = _rank_setup("conv_transformer.yaml")
+    dev = batch["emg_windows"].device
+    rank = dist.get_rank()
+    stages = pp.create_stage_mesh(2)
+    alone = pp.StageMesh(None, None, None)
+    m, shift = batch["emg_windows"].shape[0], 3
+    report = {"stage": stages.stage_rank, "microbatches": m}
+
+    def fold(model, mesh):
+        """Outputs, loss and {name: gradient} of one train-mode fold;
+        ``mesh`` None: ``__call__``."""
+        gen = torch.Generator(dev).manual_seed(5)
+        if mesh is None:
+            su, ph = model(batch["emg_windows"], train=True, shift=shift,
+                           generator=gen)
+            params = list(model.parameters())
+        else:
+            pp.shard_stages_(model, mesh)
+            su, ph = model.pipelined(pp.microbatch_rows(
+                batch["emg_windows"], m, mesh), mesh, m, train=True,
+                shift=shift, generator=gen)
+            params = sum(pp.stage_parameters(model, mesh), [])
+        loss, _ = tenc._train_loss(model, su, ph, batch, max_samples, 0)
+        grads = list(torch.autograd.grad(
+            loss if mesh is None else pp.last_stage_only(loss, mesh),
+            params, materialize_grads=True))
+        if mesh is not None:
+            n_rep = len(pp.stage_parameters(model, mesh)[0])
+            pp.allreduce_stage_grads_(grads[:n_rep], grads[n_rep:], mesh)
+        names = {id(p): n for n, p in model.named_parameters()}
+        return (su.detach(), ph.detach(), float(loss),
+                {names[id(p)]: g for p, g in zip(params, grads)})
+
+    def against(got, want):
+        su, ph, loss, grads = got
+        su1, ph1, loss1, grads1 = want
+        rel = {}
+        for n, g in grads.items():
+            ref = grads1[n.rsplit(".", 1)[0] + ".weight"] if _bn_fed(n) \
+                else grads1[n]
+            rel[n] = float((g - grads1[n]).abs().max() / ref.abs().max())
+        return {"outputs_rel": max(float((a - b).abs().max()
+                                         / b.abs().max())
+                                   for a, b in ((su, su1), (ph, ph1))),
+                "loss_rel": abs(loss - loss1) / abs(loss1),
+                "grads_rel": max(rel.values()), "grad_tensors": len(rel),
+                "worst_grad": max(rel, key=rel.get)}
+
+    # 1. One fold: forward and gradients.
+    init = _params_host(fresh())
+    piped = fold(fresh(), stages)
+    report["fold"] = against(piped, fold(fresh(), alone))
+    report["fold_full_batch"] = against(piped, fold(fresh(), None))
+    del piped
+
+    # 2. The trainer's step: pipelined, and at world 1 both ways.
+    def trainer_steps(mesh, n, on_step=None):
+        model = fresh()
+        if mesh is None:
+            state, pipeline = tenc.init_train_state(model), None
+        else:
+            pp.shard_stages_(model, mesh)
+            state = tenc.init_train_state(model, params=sum(
+                pp.stage_parameters(model, mesh), []))
+            pipeline = (mesh, m)
+        tenc.set_learning_rate(state.opt, 3e-4)
+        step = tenc.make_encoder_train_step(model, max_samples,
+                                            pipeline=pipeline)
+        losses, ms, comm, snapshot = [], [], [], {}
+        for i in range(n):
+            if on_step is not None:
+                on_step(i)
+            if i == PP_CONTROL_STEPS and mesh is alone:
+                snapshot = _params_host(model)
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            _sync(dev)
+            ms.append(1e3 * (time.perf_counter() - t0))
+            comm.append((stages.comm.calls, stages.comm.bytes,
+                         stages.comm.seconds))
+        weights = {k: v.cpu().numpy().astype(np.float64) for k, v in
+                   pp.gather_stage_state_dict(model, mesh or alone).items()
+                   if k in init}
+        return (weights, losses, ms, comm, snapshot,
+                _held_bytes(state, model))
+
+    one, losses1, ms1, _, _, one_bytes = trainer_steps(None, PP_STEPS)
+    one_mb, losses_mb, ms_mb, _, at_control, _ = trainer_steps(alone,
+                                                               PP_STEPS)
+    before = kernel_launches()
+
+    def time_last(i):
+        stages.comm.timed = i == PP_STEPS - 1
+
+    got, losses, ms, comm, _, held = trainer_steps(stages, PP_STEPS,
+                                                   time_last)
+    stages.comm.timed = False
+    launches = {k: v - before[k] for k, v in kernel_launches().items()}
+    calls = [b[0] - a[0] for a, b in zip([(0, 0, 0.0)] + comm, comm)]
+    nbytes = [b[1] - a[1] for a, b in zip([(0, 0, 0.0)] + comm, comm)]
+    report["steps"] = {
+        "losses": losses, "world1_losses": losses1,
+        "world1_microbatch_losses": losses_mb,
+        "loss_gaps": [abs(a - b) / abs(b) for a, b in
+                      zip(losses, losses_mb)],
+        "loss_gaps_full_batch": [abs(a - b) / abs(b) for a, b in
+                                 zip(losses, losses1)],
+        "ms": ms, "world1_ms": ms1, "world1_microbatch_ms": ms_mb,
+        "messages_per_step": calls[-1], "mb_per_step": nbytes[-1] / 2**20,
+        "p2p_ms_last_step": 1e3 * comm[-1][2],
+        "weight_deviation": _weight_deviation(got, one_mb, init),
+        "weight_deviation_full_batch": _weight_deviation(got, one, init),
+        "state_bytes": held, "world1_state_bytes": one_bytes,
+        "launches": launches}
+    del got, one, one_mb
+
+    # 3. The control: no stage-group sum of the replicated gradients.
+    real = pp.sum_over_stages_
+    pp.sum_over_stages_ = lambda grads, mesh: None
+    try:
+        got, ctrl_losses, _, _, _, _ = trainer_steps(stages,
+                                                     PP_CONTROL_STEPS)
+    finally:
+        pp.sum_over_stages_ = real
+    report["control"] = {"losses": ctrl_losses,
+                         "weight_deviation": _weight_deviation(
+                             got, at_control, init)}
+    Path(out).mkdir(parents=True, exist_ok=True)
+    (Path(out) / f"pp_r{rank}.json").write_text(json.dumps(report))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def ep_rank(out: str, data: str, expert: str) -> None:
+    """One rank of an [ep] run (``check_ep``): the full-width MoE encoder
+    (``conv_transformer_moe.yaml``), TF32 off, at ``(data, expert)``; at
+    the configuration's capacity factor and at ``EP_DROPPING_FACTOR``,
+    ``EP_STEPS`` trainer steps at world 1 and at the layout from the same
+    seeded weights (losses, picks dropped, ms/step, state bytes, the
+    collectives' count and MB per step, then one step more that times them);
+    at a data axis above 1 also the control: global slot offsets replaced
+    by local ones. Writes ``ep_{data}x{expert}_r{rank}.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from ste_gan_torch.models import moe as moe_mod
+    from ste_gan_torch.ops import kernel_launches
+    from ste_gan_torch.parallel import expert_parallel as ep
+    from ste_gan_torch.parallel import mesh
+    from ste_gan_torch.parallel.tensor_parallel import CommStats
+    from ste_gan_torch.train import encoder as tenc
+
+    d, e = int(data), int(expert)
+    factors = {"config": None, "dropping": EP_DROPPING_FACTOR}
+    fresh_at, batch = {}, None
+    for name, cf in factors.items():
+        kw = {} if cf is None else {"moe_capacity_factor": cf}
+        fresh_at[name], batch, max_samples = _rank_setup(
+            "conv_transformer_moe.yaml", **kw)
+    dev = batch["emg_windows"].device
+    rank = dist.get_rank()
+    layout = ep.create_expert_mesh(d, e)
+    grads_comm = CommStats()
+    allreduce = mesh.allreduce_grads_
+
+    def counted_allreduce(grads, group, average=True):
+        """``mesh.allreduce_grads_``, counted in ``grads_comm``."""
+        grads = list(grads)
+        if group is None:
+            return grads
+        grads_comm.calls += 1
+        grads_comm.bytes += 4 * sum(g.numel() for g in grads)
+        if grads_comm.timed:
+            _sync(dev)
+        t0 = time.perf_counter()
+        allreduce(grads, group, average)
+        if grads_comm.timed:
+            _sync(dev)
+            grads_comm.seconds += time.perf_counter() - t0
+        return grads
+
+    mesh.allreduce_grads_ = counted_allreduce
+
+    def blocks(model):
+        return [layer.moe_ffn for layer in model.transformer.layers]
+
+    def run(model, group, n):
+        state = tenc.init_train_state(model)
+        tenc.set_learning_rate(state.opt, 3e-4)
+        step = tenc.make_encoder_train_step(model, max_samples, group=group)
+        losses, dropped, ms = [], [], []
+        for _ in range(n):
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            dropped.append(int(sum(int(b.dropped) for b in blocks(model))))
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return state, step, losses, dropped, ms
+
+    report = {"data": d, "expert": e}
+    for name in factors:
+        one = fresh_at[name]()
+        s1, _, losses1, dropped1, ms1 = run(one, None, EP_STEPS)
+        one_bytes = _held_bytes(s1, one)
+        del one, s1
+        model = fresh_at[name]()
+        ep.shard_moe_module_(model, layout)
+        for b in blocks(model):
+            b.comm = layout.comm
+        before = kernel_launches()
+        state, step, losses, dropped, ms = run(model, layout.data, EP_STEPS)
+        launches = {k: v - before[k] for k, v in kernel_launches().items()}
+        calls, nbytes = layout.comm.calls, layout.comm.bytes
+        g_calls, g_bytes = grads_comm.calls, grads_comm.bytes
+        layout.comm.timed = grads_comm.timed = True
+        layout.comm.seconds = grads_comm.seconds = 0.0
+        step(state, batch)
+        _sync(dev)
+        layout.comm.timed = grads_comm.timed = False
+        report[name] = {
+            "losses": losses, "world1_losses": losses1,
+            "loss_gaps": [abs(a - b) / abs(b) for a, b in
+                          zip(losses, losses1)],
+            "dropped": dropped, "world1_dropped": dropped1,
+            "ms": ms, "world1_ms": ms1,
+            "moe_collectives_per_step": calls / EP_STEPS,
+            "moe_mb_per_step": nbytes / EP_STEPS / 2**20,
+            "grad_allreduce_mb_per_step": g_bytes / EP_STEPS / 2**20,
+            "collectives_per_step": (calls + g_calls) / EP_STEPS,
+            "moe_comm_ms": 1e3 * layout.comm.seconds,
+            "grad_allreduce_ms": 1e3 * grads_comm.seconds,
+            "state_bytes": _held_bytes(state, model),
+            "world1_state_bytes": one_bytes, "launches": launches}
+        layout.comm.calls = layout.comm.bytes = 0
+        grads_comm.calls = grads_comm.bytes = 0
+        del model, state, step
+    if d > 1:
+        real = moe_mod._gather
+
+        def local_offsets(counts, group, comm):
+            every = real(counts, group, comm)
+            mine = torch.zeros_like(every)
+            me = dist.get_rank(group)
+            mine[me] = every[me]
+            return mine
+
+        moe_mod._gather = local_offsets
+        try:
+            model = fresh_at["dropping"]()
+            _, _, losses, dropped, _ = run(model, layout.data, EP_STEPS)
+        finally:
+            moe_mod._gather = real
+        report["control"] = {"losses": losses, "dropped": dropped}
+    mesh.allreduce_grads_ = allreduce
+    Path(out).mkdir(parents=True, exist_ok=True)
+    (Path(out) / f"ep_{d}x{e}_r{rank}.json").write_text(json.dumps(report))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def check_pp_ep_kernels(torch, fa, card):
+    """AdamW, kernel against plain (``adamw_row``, 1e-6), at the per-rank
+    sets [pp], [ep] and [axes] update: a stage's set of the full-width
+    ``conv_transformer.yaml`` encoder at 2 and 3 stages (the frontend and
+    heads, and 3 or 2 layers; every stage's set has the same shapes), an
+    expert rank's set of ``conv_transformer_moe.yaml`` at expert axis 2 (2
+    of 4 experts per block, the rest whole), and the axes worker's sets (4
+    of its 8 layers; the router and 4 of its 8 experts). Shapes are read
+    from modules the port's own functions cut, built on the meta device.
+    Not counted as launches."""
+    import torch.nn as nn
+
+    from ste_gan_torch.config import load_config
+    from ste_gan_torch.models.emg_encoder import init_emg_encoder
+    from ste_gan_torch.parallel import expert_parallel as ep
+    from ste_gan_torch.parallel import multiprocess_axes as axes
+    from ste_gan_torch.parallel import pipeline_parallel as pp
+    from ste_gan_torch.parallel.tensor_parallel import Mesh2D
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    sets = {}
+    for yaml_name in ("conv_transformer.yaml", "conv_transformer_moe.yaml"):
+        cfg = load_config(emg_enc_cfg=str(ROOT / "configs" / "emg_encoder"
+                                          / yaml_name))
+        with torch.device("meta"):
+            model = init_emg_encoder(cfg, torch.float32)
+        if yaml_name == "conv_transformer.yaml":
+            for s in (2, 3):
+                mesh = pp.StageMesh(None, None, None, stage_rank=s - 1,
+                                    num_stages=s)
+                rep, own = pp.stage_parameters(model, mesh)
+                sets[f"encoder_stage_of_{s}"] = [p.shape for p in rep + own]
+        else:
+            ep.shard_moe_module_(model, Mesh2D(None, None, None, 0, 1, 1, 2))
+            sets["moe_encoder_expert_of_2"] = [p.shape for p in
+                                               model.parameters()]
+    with torch.device("meta"):
+        stack = axes.pipeline_setup()[0]
+        moe = axes.moe_setup()[0]
+    _, own = pp.stage_parameters(stack, pp.StageMesh(
+        None, None, None, stage_rank=1, num_stages=2))
+    sets["axes_pipeline_stage_of_2"] = [p.shape for p in own]
+    holder = nn.Module()
+    holder.moe_ffn = moe
+    ep.shard_moe_module_(holder, Mesh2D(None, None, None, 0, 1, 1, 2))
+    sets["axes_expert_of_2"] = [p.shape for p in moe.parameters()]
+    rows = []
+    for label, shapes in sets.items():
+        hyper = (dict(ENC_HYPER, lr=axes.LR) if label.startswith("axes")
+                 else ENC_HYPER)
+        row = {"set": label, **adamw_row(torch, fa, shapes, gen, **hyper)}
+        rows.append(row)
+        print(f"[pp/ep/axes] fused_adamw at {label} ({row['params']} params, "
+              f"{row['leaves']} leaves): max|err| {row['max_abs_err']:.3e} "
+              f"(tol {row['tol']:g}) kernel {row['ms']:.4f} ms plain "
+              f"{row['plain_ms']:.4f} ms library {row['library_ms']:.4f} ms "
+              f"bound {row['bound_ms']:.4f} ms ({card})", flush=True)
+    return {"adamw": rows, "seconds": time.perf_counter() - t0,
+            "summary": {"shapes": len(rows), "max_abs_err": max(
+                r["max_abs_err"] for r in rows)}}
+
+
+def check_pp(torch, card, world1_encoder):
+    """``[pp]``: pipeline parallelism on the one card, gloo ranks sharing
+    it. ``pp_rank`` on two ranks: the fold's forward and gradients within
+    ``PP_GRAD_RTOL`` of world 1 at microbatch shapes (outputs and loss of
+    the whole-batch call too); the trainer step's losses within
+    ``DIST_LOSS_RTOL`` and weights within ``DIST_WEIGHT_RTOL`` of both
+    world-1 runs; the control leaving world 1's weights by more than
+    ``DIST_WEIGHT_RTOL`` on a rank. Beside it, one voiced epoch of
+    ``train.encoder --pipeline_stages 2`` on the [encoder-trainer] corpus,
+    whose train and validation losses must be within ``PP_EPOCH_RTOL`` of
+    that run's first epoch (``world1_encoder``). Two ranks on one card:
+    correctness and the messages' cost, not scaling."""
+    from ste_gan_torch.parallel.launch import run_ranks
+
+    work = ROOT / "build" / "chip_smoke_pp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    enc_data = ROOT / "build" / "chip_smoke_encoder" / "synthetic.yaml"
+    errors, seconds = {}, {}
+
+    def launch(name, cmd):
+        t0 = time.perf_counter()
+        try:
+            run_ranks(cmd, 2, work / f"{name}_logs", 900, env=_dist_env())
+        except Exception as err:  # reported, and fatal, below
+            errors[name] = err
+        seconds[name] = time.perf_counter() - t0
+
+    threads = [
+        threading.Thread(target=launch, args=(
+            "worker", _rank_program("pp_rank", work / "worker"))),
+        threading.Thread(target=launch, args=("trainer", [
+            sys.executable, "-m", "ste_gan_torch.train.encoder", "--config",
+            str(ROOT / "configs" / "ste_gan_base_gantts.yaml"), "--data",
+            str(enc_data), "--emg_enc_cfg",
+            str(ROOT / "configs" / "emg_encoder" / "conv_transformer.yaml"),
+            "--exp_dir", str(work / "enc"), "--num_epochs", "1",
+            "--pipeline_stages", "2", "--dist_backend", "gloo",
+            "--dist_timeout_s", "300"]))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise SystemExit(f"[pp] runs failed: {errors}")
+    ranks = [json.loads((work / "worker" / f"pp_r{r}.json").read_text())
+             for r in range(2)]
+    report = {"ranks": ranks, "seconds_side_by_side": seconds}
+    for r in ranks:
+        fold, full, steps = r["fold"], r["fold_full_batch"], r["steps"]
+        print(f"[pp] stage {r['stage']} of 2 (gloo, one card, full width, "
+              f"{r['microbatches']} microbatches of one window, TF32 off): "
+              f"one fold against world 1 at microbatch shapes: outputs "
+              f"{fold['outputs_rel']:.3e}, loss {fold['loss_rel']:.3e}, "
+              f"gradients {fold['grads_rel']:.3e} at worst "
+              f"({fold['worst_grad']}, {fold['grad_tensors']} tensors; tol "
+              f"{PP_GRAD_RTOL:g}); against the whole-batch call: outputs "
+              f"{full['outputs_rel']:.3e}, loss {full['loss_rel']:.3e}, "
+              f"gradients {full['grads_rel']:.3e} ({full['worst_grad']}; "
+              f"ReLU kinks); {PP_STEPS} trainer steps: ms/step "
+              f"{', '.join(f'{x:.1f}' for x in steps['ms'])} (world 1 "
+              f"{', '.join(f'{x:.1f}' for x in steps['world1_ms'])}; at "
+              f"microbatch shapes "
+              f"{', '.join(f'{x:.1f}' for x in steps['world1_microbatch_ms'])}"
+              f"), loss gaps "
+              f"{', '.join(f'{g:.3e}' for g in steps['loss_gaps'])} (whole "
+              f"batch {', '.join(f'{g:.3e}' for g in steps['loss_gaps_full_batch'])}"
+              f"), weight deviation {steps['weight_deviation']:.3e} (whole "
+              f"batch {steps['weight_deviation_full_batch']:.3e}; tol "
+              f"{DIST_WEIGHT_RTOL:g}); {steps['messages_per_step']} messages "
+              f"per step, {steps['mb_per_step']:.1f} MB, "
+              f"{steps['p2p_ms_last_step']:.1f} ms of sends and receives in "
+              f"the last step; state held {steps['state_bytes'] / 2**20:.1f} "
+              f"MB (world 1 {steps['world1_state_bytes'] / 2**20:.1f}); "
+              f"launches {steps['launches']}; control without the "
+              f"stage-group sum: weight deviation "
+              f"{r['control']['weight_deviation']:.3e} ({card})", flush=True)
+        if not (fold["outputs_rel"] <= PP_GRAD_RTOL
+                and fold["loss_rel"] <= PP_GRAD_RTOL
+                and fold["grads_rel"] <= PP_GRAD_RTOL
+                and full["outputs_rel"] <= PP_GRAD_RTOL
+                and full["loss_rel"] <= PP_GRAD_RTOL
+                and max(steps["loss_gaps"]
+                        + steps["loss_gaps_full_batch"]) <= DIST_LOSS_RTOL
+                and steps["weight_deviation"] <= DIST_WEIGHT_RTOL
+                and steps["weight_deviation_full_batch"] <= DIST_WEIGHT_RTOL
+                and steps["launches"]["fused_adamw"] == PP_STEPS):
+            raise SystemExit(f"[pp] the pipelined encoder left world 1: {r}")
+    if not any(r["control"]["weight_deviation"] > DIST_WEIGHT_RTOL
+               for r in ranks):
+        raise SystemExit("[pp] the weight gate misses ranks that skip the "
+                         "stage-group sum of the replicated gradients")
+
+    run = next((work / "enc").iterdir())
+    logged = {"train/loss": [], "val/loss": []}
+    for line in (run / "metrics.jsonl").read_text().splitlines():
+        rec = json.loads(line)
+        if rec["tag"] in logged:
+            logged[rec["tag"]].append(rec["value"])
+    got = logged["train/loss"] + logged["val/loss"]
+    want = (world1_encoder["train_loss"][:len(logged["train/loss"])]
+            + world1_encoder["val_loss"][:len(logged["val/loss"])])
+    gaps = ([abs(a - b) / abs(b) for a, b in zip(got, want)]
+            if len(got) == len(want) else None)
+    launches = _logged_launches(run / "log.txt")
+    held = [ln for ln in (run / "log.txt").read_text().splitlines()
+            if "Train state held by this rank" in ln]
+    report["trainer"] = {"seconds": seconds["trainer"], "losses": got,
+                         "world1_losses": want, "gaps": gaps,
+                         "rank0_launches": launches,
+                         "rank0_state_line": held[-1] if held else None}
+    print(f"[pp] train.encoder --pipeline_stages 2, 1 voiced epoch in "
+          f"{seconds['trainer']:.1f} s beside the worker: train and val "
+          f"losses {got}, relative gap to world 1's first epoch "
+          f"{', '.join(f'{g:.3e}' for g in gaps or [])} (tol "
+          f"{PP_EPOCH_RTOL:g}); rank 0 launches {launches}; "
+          f"{held[-1].split(' - ')[-1] if held else ''} ({card})", flush=True)
+    if (not (run / ".done").exists() or gaps is None or not got
+            or not max(gaps) <= PP_EPOCH_RTOL
+            or launches["fused_adamw"] <= 0):
+        raise SystemExit(f"[pp] the pipelined encoder trainer went wrong: "
+                         f"{got} against world 1's {want}, {launches}")
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"[pp] phase took {report['seconds']:.1f} s", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return report
+
+
+def check_ep_axes(torch, card):
+    """``[ep]`` and ``[axes]`` side by side on the one card, gloo ranks
+    sharing it. [ep]: ``ep_rank`` at ``(data, expert) = (1, 2)`` and
+    ``(2, 1)``: losses within ``EP_LOSS_RTOL`` of world 1's and the first
+    step's picks dropped equal to world 1's, at the configuration's
+    capacity and at ``EP_DROPPING_FACTOR`` (where picks must drop); the
+    control (local slot offsets, at (2, 1) and the dropping factor) must
+    change the first step's picks dropped or a loss beyond
+    ``EP_LOSS_RTOL``. [axes]: ``python -m
+    ste_gan_torch.parallel.multiprocess_axes`` in both modes on two
+    processes against the module's one-process ``oracle`` on this card
+    (forward ``AXES_FWD_TOL``, gradients ``AXES_GRAD_TOL``, the weights
+    after the AdamW step within 2 lr), the processes' dumps equal."""
+    from ste_gan_torch.parallel import multiprocess_axes as axes
+    from ste_gan_torch.parallel.launch import run_ranks
+
+    work = ROOT / "build" / "chip_smoke_ep"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    errors, seconds = {}, {}
+
+    def launch(name, cmd):
+        t0 = time.perf_counter()
+        try:
+            run_ranks(cmd, 2, work / f"{name}_logs", 900, env=_dist_env())
+        except Exception as err:  # reported, and fatal, below
+            errors[name] = err
+        seconds[name] = time.perf_counter() - t0
+
+    jobs = {f"ep_{d}x{e}": _rank_program("ep_rank", work / "ep", d, e)
+            for d, e in ((1, 2), (2, 1))}
+    for mode in ("pipeline", "expert"):
+        jobs[f"axes_{mode}"] = [
+            sys.executable, "-m", "ste_gan_torch.parallel.multiprocess_axes",
+            "--mode", mode, "--out", str(work / mode), "--dist_backend",
+            "gloo", "--timeout_s", "300"]
+    threads = [threading.Thread(target=launch, args=item)
+               for item in jobs.items()]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise SystemExit(f"[ep]/[axes] runs failed: {errors}")
+    report = {"seconds_side_by_side": seconds, "ep": {}, "axes": {}}
+    for d, e in ((1, 2), (2, 1)):
+        ranks = [json.loads((work / "ep" / f"ep_{d}x{e}_r{r}.json")
+                            .read_text()) for r in range(2)]
+        report["ep"][f"{d}x{e}"] = ranks
+        for r, res in enumerate(ranks):
+            for name in ("config", "dropping"):
+                x = res[name]
+                print(f"[ep] (data, expert) = ({d}, {e}) rank {r}, capacity "
+                      f"{name}: loss gaps to world 1 "
+                      f"{', '.join(f'{g:.3e}' for g in x['loss_gaps'])} (tol "
+                      f"{EP_LOSS_RTOL:g}); picks dropped {x['dropped']} "
+                      f"(world 1 {x['world1_dropped']}); ms/step "
+                      f"{', '.join(f'{v:.1f}' for v in x['ms'])} (world 1 "
+                      f"{', '.join(f'{v:.1f}' for v in x['world1_ms'])}); "
+                      f"{x['collectives_per_step']:.0f} collectives per step, "
+                      f"MoE {x['moe_mb_per_step']:.3f} MB + gradient "
+                      f"all-reduce {x['grad_allreduce_mb_per_step']:.1f} MB; "
+                      f"timed step: MoE {x['moe_comm_ms']:.1f} ms, all-reduce "
+                      f"{x['grad_allreduce_ms']:.1f} ms; state held "
+                      f"{x['state_bytes'] / 2**20:.1f} MB (world 1 "
+                      f"{x['world1_state_bytes'] / 2**20:.1f}) ({card})",
+                      flush=True)
+                if not (max(x["loss_gaps"]) <= EP_LOSS_RTOL
+                        and x["dropped"][0] == x["world1_dropped"][0]
+                        and x["launches"]["fused_adamw"] == EP_STEPS):
+                    raise SystemExit(f"[ep] ({d}, {e}) left world 1: {x}")
+            if not sum(res["dropping"]["world1_dropped"]):
+                raise SystemExit("[ep] no pick dropped at the dropping "
+                                 "capacity factor")
+            if "control" in res:
+                c, w = res["control"], res["dropping"]
+                gap = max(abs(a - b) / abs(b) for a, b in
+                          zip(c["losses"], w["world1_losses"]))
+                caught = {"dropped": c["dropped"][0] != w["world1_dropped"][0],
+                          "loss": gap > EP_LOSS_RTOL}
+                c["caught"], c["loss_gap"] = caught, gap
+                print(f"[ep] control with local slot offsets, (2, 1): picks "
+                      f"dropped {c['dropped']} (world 1 "
+                      f"{w['world1_dropped']}), loss gap {gap:.3e}; caught "
+                      f"by {caught} ({card})", flush=True)
+                if not any(caught.values()):
+                    raise SystemExit("[ep] no gate catches local slot "
+                                     "offsets")
+
+    for mode in ("pipeline", "expert"):
+        out = work / mode
+        want_y, want_grads, want_state = axes.oracle(mode, "cuda")
+        dumps = [(np.load(out / f"fwd_p{r}.npy"),
+                  dict(np.load(out / f"grads_p{r}.npz")),
+                  dict(np.load(out / f"state_p{r}.npz"))) for r in range(2)]
+        stats = [json.loads((out / f"stats_p{r}.json").read_text())
+                 for r in range(2)]
+        y, grads, state = dumps[0]
+        fwd_ok = np.allclose(y, want_y, **AXES_FWD_TOL)
+        grads_ok = set(grads) == set(want_grads) and all(
+            np.allclose(grads[k], v, **AXES_GRAD_TOL)
+            for k, v in want_grads.items())
+        state_ok = set(state) == set(want_state) and all(
+            np.abs(state[k] - v).max() <= 2 * axes.LR
+            for k, v in want_state.items())
+        equal = all(np.array_equal(a, b) for a, b in zip(
+            [dumps[0][0], *dumps[0][1].values(), *dumps[0][2].values()],
+            [dumps[1][0], *dumps[1][1].values(), *dumps[1][2].values()]))
+        row = {"forward_max_abs": float(np.abs(y - want_y).max()),
+               "grads_max_abs": max(float(np.abs(grads[k] - v).max())
+                                    for k, v in want_grads.items()),
+               "forward_ok": fwd_ok, "grads_ok": grads_ok,
+               "state_ok": state_ok, "processes_equal": equal,
+               "seconds": seconds[f"axes_{mode}"], "stats": stats}
+        report["axes"][mode] = row
+        print(f"[axes] {mode} on 2 processes (gloo, one card) against one "
+              f"process: forward max|diff| {row['forward_max_abs']:.3e}, "
+              f"gradients {row['grads_max_abs']:.3e} (within the JAX test's "
+              f"tolerances: {fwd_ok}, {grads_ok}); weights after AdamW within "
+              f"2 lr {state_ok}; processes' dumps equal {equal}; "
+              f"{seconds[f'axes_{mode}']:.1f} s; launches per process "
+              f"{[s['launches']['fused_adamw'] for s in stats]} ({card})",
+              flush=True)
+        if not (fwd_ok and grads_ok and state_ok and equal):
+            raise SystemExit(f"[axes] {mode} left one process: {row}")
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"[ep]/[axes] phase took {report['seconds']:.1f} s", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -3644,6 +4384,17 @@ def main() -> int:
         lap("tp")
         report["sp"] = check_sp(torch, card)
         lap("sp")
+
+        # ---- Pipeline and expert parallelism, and the axes worker: AdamW
+        # at their per-rank sets, the pipelined encoder and its trainer at
+        # 2 stages, the MoE encoder at (1, 2) and (2, 1), both modes of
+        # the worker on two processes. ----
+        report["pp_ep_kernels"] = check_pp_ep_kernels(torch, fa, card)
+        report["pp"] = check_pp(torch, card,
+                                report["encoder_trainer"]["voiced"])
+        lap("pp")
+        report["ep_axes"] = check_ep_axes(torch, card)
+        lap("ep and axes")
     finally:
         for work in ("chip_smoke_trainer", "chip_smoke_encoder"):
             shutil.rmtree(ROOT / "build" / work, ignore_errors=True)
@@ -3699,6 +4450,27 @@ def main() -> int:
             "train_encoder_1x2_rank0": tp_report["encoder"][
                 "rank0_launches"][name]}
 
+    pp_ranks = report["pp"]["ranks"]
+    ep_runs = report["ep_axes"]["ep"]
+    axes_runs = report["ep_axes"]["axes"]
+
+    def axes_family_launches(name):
+        """Launches of ``name`` on the [pp], [ep] and [axes] paths, per
+        rank: the pipelined trainer steps of the worker and the trainer
+        CLI's rank 0; each (data, expert) layout's steps at both capacity
+        factors; each mode of the axes worker."""
+        return {
+            "pp": {"worker_steps": [r["steps"]["launches"][name]
+                                    for r in pp_ranks],
+                   "train_encoder_s2_rank0": report["pp"]["trainer"][
+                       "rank0_launches"][name]},
+            "ep": {layout: [sum(r[f]["launches"][name]
+                                for f in ("config", "dropping"))
+                            for r in ranks]
+                   for layout, ranks in ep_runs.items()},
+            "axes": {mode: [s["launches"][name] for s in row["stats"]]
+                     for mode, row in axes_runs.items()}}
+
     kernels = [{"name": name, "route": "cuda", "source": source[name],
                 "kernel": cuda_kernels[name], "replaces": replaces[name],
                 "launches": launches[name],
@@ -3707,8 +4479,11 @@ def main() -> int:
                 "dist_shapes_held": dist_held[name],
                 "tp_launches": tp_launches(name),
                 "tp_shapes_held": tp_held[name],
+                "pp_ep_axes_launches": axes_family_launches(name),
                 **summaries[name]}
                for name in counters]
+    kernels[-1]["pp_ep_axes_shapes_held"] = report["pp_ep_kernels"][
+        "summary"]
     enc_adamw = report["encoder_step"]["adamw"]
     kernels[-1]["encoder_path"] = {
         "trainer_launches": {m: n["fused_adamw"]
@@ -3733,6 +4508,7 @@ def main() -> int:
         "tp_launches": {"train_encoder_1x2_rank0_voiced": tp_report[
             "encoder"]["rank0_launches"]["dtw"]},
         "tp_shapes_held": None,
+        "pp_ep_axes_launches": axes_family_launches("dtw"),
         **dtw_summary})
     kernels.append({
         "name": "filtfilt", "route": "cuda", "source": "ste_gan_torch/csrc/iir.cu",
@@ -3743,6 +4519,7 @@ def main() -> int:
         "dist_launches": {},
         "tp_launches": {},
         "tp_shapes_held": None,
+        "pp_ep_axes_launches": axes_family_launches("filtfilt"),
         **iir_summary})
     report["kernels"] = kernels
     report["laps_s"] = laps

@@ -115,8 +115,9 @@ class TrainConfig:
     #: ``python -m ste_gan_torch.parallel.launch``): above 0 it must equal
     #: the ranks launched; 0 or below takes them all.
     data_parallel: int = -1
-    #: Tensor-parallel size (1 = off): not ported yet, above 1 raises
-    #: (``ROADMAP.md`` §1).
+    #: Tensor-parallel size (1 = off): the ranks form ``(ranks / P, P)``
+    #: and each model rank holds output-channel slabs of both networks
+    #: (``parallel/tensor_parallel.py``).
     model_parallel: int = 1
     #: Store the persistent train state (parameters, both AdamW moment
     #: sets, the generator EMA) sharded over the ranks

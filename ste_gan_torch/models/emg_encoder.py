@@ -26,6 +26,11 @@ that slab with the slab's parameters and running statistics (over
 dense and attention layers split as ``models/transformer.py`` says. The
 GAN step's frozen encoder stays replicated.
 
+:meth:`EMGEncoderTransformer.pipelined` runs the transformer stack as a
+GPipe pipeline over stage ranks (``parallel/pipeline_parallel.py``); the
+frontend and heads run on every stage rank. Under data parallelism an MoE
+block routes the whole batch's tokens (``group``, ``models/moe.py``).
+
 Takes channel-last ``[B, T, C]`` EMG; module paths follow the reference
 state-dict layout (``conv_blocks.i``, ``transformer.layers.i``).
 ``moe_experts > 0`` gives every transformer layer a mixture-of-experts FFN
@@ -210,9 +215,71 @@ class EMGEncoderTransformer(nn.Module):
         x = self._frontend(x_raw, train, shift, group if train else None)
         for layer in self.transformer.layers:
             x = layer(x, generator if train else None, train=train,
-                      rows=rows)
+                      rows=rows, group=group if train else None)
+        return self._heads(x)
+
+    def _heads(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
+        dt = self.dtype
         return (linear(x, self.w_out, dt).float(),
                 linear(x, self.w_aux, dt).float())
+
+    def pipelined(self, x_raw, mesh, num_microbatches: int,
+                  train: bool = False, shift: int = 0,
+                  generator: Optional[torch.Generator] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The forward with the transformer stack run as a GPipe pipeline
+        over ``mesh``'s stage ranks (``parallel/pipeline_parallel.py``);
+        the conv frontend and the heads run on every stage rank under data
+        parallelism over ``mesh.data``. ``x_raw``: this data rank's rows of
+        every microbatch (``pipeline_parallel.microbatch_rows`` of the
+        global batch); the predictions are those rows', the same on every
+        stage rank. Each rank applies only its stage's layers (it may hold
+        no others: ``shard_stages_``).
+
+        Train mode: BatchNorm statistics over the data group (every stage
+        rank runs the frontend, so the running statistics move alike on
+        each), and every layer's dropout masks drawn from ``generator`` for
+        the whole global batch, in the order of a one-device forward, then
+        sliced to each microbatch's rows: the masks, and the generator's
+        state after the step, are one device's (JAX shares one mask over
+        the microbatches instead). MoE layers are not pipelined."""
+        from ste_gan_torch.models.transformer import DrawnMasks
+        from ste_gan_torch.parallel.pipeline_parallel import (
+            pipeline_local, stage_layers, stage_range)
+
+        if self.moe_experts > 0:
+            raise NotImplementedError(
+                "pipelined execution of MoE layers is unsupported — use "
+                "expert parallelism (parallel/expert_parallel.py) instead")
+        layers = self.transformer.layers
+        own = stage_range(len(layers), mesh.stage_rank, mesh.num_stages)
+        if train and self.dropout > 0 and generator is None:
+            raise ValueError("a train-mode forward with dropout needs a "
+                             "torch.Generator for its masks")
+        x = self._frontend(x_raw, train, shift, mesh.data if train else None)
+        masks = {}
+        if train and self.dropout > 0:
+            keep = 1.0 - self.dropout
+            batch = x.shape[0] * mesh.data_size
+            for i, layer in enumerate(layers):
+                for shape in layer.dropout_draw_shapes(batch, x.shape[1]):
+                    draw = torch.rand(shape, generator=generator,
+                                      device=x.device)
+                    if i in own:
+                        masks.setdefault(i, []).append(draw < keep)
+        local = x.shape[0] // num_microbatches
+        stage = stage_layers(self, mesh.stage_rank, mesh.num_stages)
+
+        def stage_fn(h, mb):
+            start = (mb * mesh.data_size + mesh.data_rank) * local
+            for i, layer in zip(own, stage):
+                gen = DrawnMasks(masks[i], start) if i in masks else None
+                h = layer(h, gen, train=train)
+            return h
+
+        x = pipeline_local(stage_fn, list(stage.parameters()), x, mesh,
+                           num_microbatches)
+        return self._heads(x)
 
     def pop_moe_aux_loss(self) -> Optional[torch.Tensor]:
         """The sum of the MoE blocks' load-balancing losses recorded by the

@@ -13,7 +13,11 @@ Dropout is applied where flax applies it (after the attention softmax, on
 the attention output, and twice in the FFN) only when a forward is given a
 ``torch.Generator``: the masks come from that generator and nothing else,
 and kept values are scaled by ``1/keep``. Without one (the eval path and
-the frozen encoder of the GAN step) no dropout runs.
+the frozen encoder of the GAN step) no dropout runs. A :class:`DrawnMasks`
+in the generator's place replays masks drawn ahead
+(:meth:`TransformerEncoderLayer.dropout_draw_shapes`), sliced to a block of
+rows: the pipelined encoder draws each layer's masks for the whole batch
+and runs them microbatch by microbatch.
 
 ``moe_experts > 0`` swaps a layer's dense FFN for the mixture-of-experts
 block (``models/moe.py``, path ``moe_ffn``), followed by one dropout, as the
@@ -70,6 +74,19 @@ def torch_linear(fan_in: int, fan_out: int, generator=None) -> nn.Linear:
     return layer
 
 
+class DrawnMasks:
+    """Dropout keep-masks drawn ahead for a whole batch, replayed in the
+    order the forward asks for them, each sliced to rows ``[start, start +
+    n)`` of its leading axis (``n``: the rows of the tensor it masks)."""
+
+    def __init__(self, masks, start: int = 0):
+        self._masks = iter(masks)
+        self.start = start
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        return next(self._masks)[self.start:self.start + x.shape[0]]
+
+
 def dropout(x, rate: float, generator: Optional[torch.Generator],
             rows: Optional[Tuple[int, int]] = None):
     """flax's ``nn.Dropout``: keep each value with probability ``1 - rate``
@@ -77,10 +94,14 @@ def dropout(x, rate: float, generator: Optional[torch.Generator],
     identity when ``generator`` is None or ``rate`` is 0. ``rows = (rank,
     ranks)``: ``x`` is a rank's equal share of the leading axis; the mask
     is drawn for the whole axis and sliced, so every rank advances the
-    generator alike and the masks equal one device's."""
+    generator alike and the masks equal one device's. A
+    :class:`DrawnMasks` generator gives its next mask instead."""
     if generator is None or rate == 0.0:
         return x
     keep = 1.0 - rate
+    if isinstance(generator, DrawnMasks):
+        return torch.where(generator.take(x), x / keep,
+                           torch.zeros((), dtype=x.dtype, device=x.device))
     if rows is None:
         draw = torch.rand(x.shape, generator=generator, device=x.device)
     else:
@@ -226,17 +247,32 @@ class TransformerEncoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.dropout_rate = dropout
+        self.num_heads = num_heads
+        self.d_model = d_model
+        self.dim_feedforward = dim_feedforward
+
+    def dropout_draw_shapes(self, batch: int, length: int):
+        """The shapes of the masks a training forward of ``[batch, length,
+        D]`` draws, in the order it draws them (none at rate 0)."""
+        if self.dropout_rate == 0.0:
+            return []
+        b, t, d = batch, length, self.d_model
+        ffn = ([(b, t, d)] if self.moe_ffn is not None
+               else [(b, t, self.dim_feedforward), (b, t, d)])
+        return [(b, self.num_heads, t, t), (b, t, d)] + ffn
 
     def forward(self, x, generator: Optional[torch.Generator] = None,
-                train: bool = False, rows: Optional[Tuple[int, int]] = None):
+                train: bool = False, rows: Optional[Tuple[int, int]] = None,
+                group=None):
         """``generator`` given: training-mode dropout drawn from it.
         ``train``: an MoE block records its load-balancing loss. ``rows``:
-        see :func:`dropout`."""
+        see :func:`dropout`. ``group``: the data-parallel ranks whose tokens
+        an MoE block routes together (``models/moe.py``)."""
         dt, p = self.dtype, self.dropout_rate
         attn = dropout(self.self_attn(x, generator, rows), p, generator, rows)
         x = layer_norm(x + attn, self.norm1, dt)
         if self.moe_ffn is not None:
-            h = dropout(self.moe_ffn(x, train), p, generator, rows)
+            h = dropout(self.moe_ffn(x, train, group), p, generator, rows)
         else:
             h = dropout(F.relu(linear(x, self.linear1, dt)), p, generator,
                         rows)

@@ -10,11 +10,15 @@ Counterpart of ``ste_gan_tpu/parallel/``:
   encoder, and the collectives of the partitioning;
 * ``sequence_parallel.py``: generator synthesis with the time axis split
   over the ranks (halo exchange);
+* ``pipeline_parallel.py``: the ``(data, stage)`` layout and the GPipe
+  schedule of the encoder's transformer stack, forward and backward, over
+  point-to-point messages;
+* ``expert_parallel.py``: the ``(data, expert)`` layout and the experts of
+  the mixture-of-experts blocks split over it;
 * ``multiprocess.py``: the worker one rank of a fleet runs;
+* ``multiprocess_axes.py``: the worker of the pipeline and expert axes
+  across processes;
 * ``launch.py``: the supervisor that runs, watches and recovers a fleet.
-
-Pipeline and expert parallelism and the cross-process axes worker are not
-ported yet (``ROADMAP.md`` §1); the settings that ask for them raise.
 """
 import importlib
 
@@ -23,6 +27,12 @@ import importlib
 #: would run in a cycle).
 _EXPORTS = {
     "synthesize_time_sharded": "sequence_parallel",
+    **{name: "pipeline_parallel" for name in (
+        "STAGE_AXIS", "StageMesh", "create_stage_mesh",
+        "create_stage_mesh_2d", "pipeline_apply", "stage_layers")},
+    **{name: "expert_parallel" for name in (
+        "EXPERT_AXIS", "create_expert_mesh", "is_expert_param",
+        "shard_moe_module_")},
     **{name: "tensor_parallel" for name in (
         "Mesh2D", "copy_to_model", "create_mesh_2d", "gather_from_model",
         "leaf_partition_spec", "replicated_sum", "shard_batch_2d",

@@ -17,7 +17,10 @@ process per rank, so the port writes the partitioning out:
   for ``w_o``) for the attention tensors and the relative-position table.
   So the port splits the same leaves as JAX and holds the same bytes per
   rank. The spectral-norm ``u``/``v`` stay replicated (JAX's rule would
-  split ``u`` where it divides; every rank here needs all of it);
+  split ``u`` where it divides; every rank here needs all of it). A
+  mixture-of-experts block splits its experts over the model ranks
+  instead (``expert_parallel.is_expert_param``; JAX's rule would split
+  each expert's trailing axis);
 * :func:`shard_module_` keeps rank ``m``'s slab of each split leaf and
   gives its layer a :class:`ModelShard`: the layer then computes only its
   output slab and :func:`gather_from_model` rebuilds the full activation,
@@ -316,7 +319,7 @@ def _direct_axes(sub: nn.Module) -> Dict[str, Optional[int]]:
         elif isinstance(sub, (MultiHeadAttention, RelativePositionalLogits)):
             axis = 2
         elif isinstance(sub, MoEFeedForward):
-            axis = t.dim() - 1
+            axis = 0  # the expert axis (``state_shardings``)
         else:
             raise ValueError(f"no tensor-parallel layout for "
                              f"{type(sub).__name__}.{name}")
@@ -337,10 +340,20 @@ def layout_axes(module: nn.Module) -> Dict[str, Optional[int]]:
 def state_shardings(module: nn.Module, model_size: int
                     ) -> Dict[str, Optional[int]]:
     """``state_dict`` key -> split axis (None: replicated) of a module
-    holding its FULL tensors, under :func:`leaf_partition_spec`."""
-    shapes = {k: v.shape for k, v in module.state_dict().items()}
-    return {k: leaf_partition_spec(shapes[k], axis, model_size)
-            for k, axis in layout_axes(module).items()}
+    holding its FULL tensors, under :func:`leaf_partition_spec`; the leaves
+    of a mixture-of-experts block under the expert rule instead
+    (``expert_parallel.is_expert_param``: its experts split over the model
+    ranks, the router whole)."""
+    from ste_gan_torch.parallel.expert_parallel import is_expert_param
+
+    sd = module.state_dict()
+    out = {}
+    for k, axis in layout_axes(module).items():
+        if "moe_ffn" in k.split("."):
+            out[k] = 0 if is_expert_param(k, sd[k], model_size) else None
+        else:
+            out[k] = leaf_partition_spec(sd[k].shape, axis, model_size)
+    return out
 
 
 def sharding_summary(module: nn.Module, model_size: int

@@ -42,12 +42,23 @@ P)`` (``parallel/tensor_parallel.py``): each model rank keeps its
 output-channel slabs of the encoder (BatchNorm statistics per slab) and of
 its AdamW moments, the fold's windows and the gradient sum go over the
 data ranks, and the checkpoints are gathered to the reference layout
-first. As in JAX, ``--pipeline_stages`` above 1 with it raises. Not
-ported: pipeline parallelism (``--pipeline_stages`` above 1 and
-``--pipeline_microbatches`` above 0 raise), an MoE encoder over several
-ranks or at ``--model_parallel`` above 1 (its capacity and token dropping
-are global in JAX: expert parallelism), and the host-fold training path
-(``--no-device_resident_data`` raises).
+first. An MoE block's experts split over the model ranks instead
+(``parallel/expert_parallel.py``'s rule).
+
+``--pipeline_stages S`` splits the ranks into ``(data, stage) = (ranks /
+S, S)`` (``parallel/pipeline_parallel.py``): each stage rank holds its
+``layers / S`` transformer layers (and their AdamW moments) and the
+replicated frontend and heads; a data rank runs its slice of each of
+``--pipeline_microbatches`` microbatches (default: one window per data
+rank each) through the stage ring; validation passes each dev batch
+through the ring whole; checkpoints gather every stage's layers. As in
+JAX, ``--pipeline_stages`` above 1 with ``--model_parallel`` above 1, or
+with an MoE encoder, raises.
+
+An MoE encoder over data ranks routes the global batch's tokens: its
+capacity and token dropping are world 1's (``models/moe.py``). Not
+ported: the host-fold training path (``--no-device_resident_data``
+raises).
 
 ``--emg_enc_cfg configs/emg_encoder/conv_transformer_moe.yaml`` trains the
 mixture-of-experts encoder: the step adds ``MOE_AUX_WEIGHT`` (0.01) times
@@ -84,6 +95,7 @@ from ste_gan_torch.ops.dtw import dtw_alignment_batched
 from ste_gan_torch.ops.fused_adamw import (
     AdamWState, adamw_init, fused_adamw_, set_learning_rate)
 from ste_gan_torch.parallel import mesh
+from ste_gan_torch.parallel import pipeline_parallel as pp
 from ste_gan_torch.parallel import tensor_parallel as tp
 from ste_gan_torch.train.encoder_data import (
     EncoderDeviceCorpus, SizeAwareSampler, fold_encoder_batch,
@@ -231,13 +243,16 @@ def make_optimizer(params) -> AdamWState:
 
 
 def init_train_state(model: EMGEncoderTransformer,
-                     seed: int = C.RANDOM_SEED) -> EncoderTrainState:
+                     seed: int = C.RANDOM_SEED,
+                     params=None) -> EncoderTrainState:
     """Optimizer state for the model's current weights (call after the model
     is on its device: the AdamW tables hold the parameters' addresses) and
-    the two random streams, seeded."""
+    the two random streams, seeded. ``params``: the parameters this rank
+    updates (default all; a pipeline stage's: ``stage_parameters``)."""
     device = next(model.parameters()).device
     return EncoderTrainState(
-        step=0, opt=make_optimizer(model.parameters()),
+        step=0, opt=make_optimizer(model.parameters() if params is None
+                                   else params),
         shift_rng=np.random.default_rng(seed),
         dropout_rng=torch.Generator(device=device).manual_seed(seed))
 
@@ -255,7 +270,7 @@ MOE_AUX_WEIGHT = 0.01
 
 def make_encoder_train_step(model: EMGEncoderTransformer, max_samples: int,
                             silent_pred_frames: int = 0,
-                            group=None) -> Callable:
+                            group=None, pipeline=None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``: a train-mode
     forward (shift, batch statistics, dropout), the voiced loss plus, when
     ``silent_pred_frames > 0``, the silent DTW loss over
@@ -272,15 +287,22 @@ def make_encoder_train_step(model: EMGEncoderTransformer, max_samples: int,
     global loss (windows of one utterance may lie on two ranks, and the
     segment sums, per-sample normalisers and DTW need them all); the
     gather's backward keeps the rank's own rows, so the parameter gradients
-    are summed over the ranks."""
+    are summed over the ranks. An MoE block routes the global batch's
+    tokens (``models/moe.py``).
+
+    ``pipeline = (mesh, num_microbatches)``: the transformer stack runs as
+    a GPipe pipeline over the stage ranks of ``mesh``
+    (``EMGEncoderTransformer.pipelined``, ``parallel/pipeline_parallel.py``)
+    on this data rank's slice of every microbatch; the predictions are
+    gathered over ``mesh.data``, the last stage's loss alone is
+    differentiated (``last_stage_only``), and the gradients are summed as
+    ``allreduce_stage_grads_`` says. The step updates this rank's set:
+    ``stage_parameters`` (``group`` is unused)."""
+    if pipeline is not None:
+        return _pipelined_train_step(model, max_samples, silent_pred_frames,
+                                     *pipeline)
     params = list(model.parameters())
     rank, size = mesh.rank_and_size(group)
-    if size > 1 and model.moe_experts > 0:
-        raise ValueError(
-            "an MoE encoder over several ranks (--data_parallel > 1): its "
-            "capacity and token dropping are global over the batch, which "
-            "needs expert parallelism, not ported yet (ROADMAP.md §1 item "
-            "3, expert_parallel.py)")
 
     def train_step(state: EncoderTrainState, batch: Batch
                    ) -> Tuple[EncoderTrainState, Dict[str, torch.Tensor]]:
@@ -290,17 +312,8 @@ def make_encoder_train_step(model: EMGEncoderTransformer, max_samples: int,
         su, ph = model(windows, train=True, shift=shift,
                        generator=state.dropout_rng, group=group)
         su, ph = mesh.gather_rows(su, group), mesh.gather_rows(ph, group)
-        n, f, d = su.shape
-        su_flat, ph_flat = su.reshape(n * f, d), ph.reshape(n * f, -1)
-        loss, counters, _ = voiced_batch_loss(su_flat, ph_flat, batch,
-                                              max_samples)
-        if silent_pred_frames > 0:
-            silent_sum, _ = silent_batch_loss(su_flat, ph_flat, batch,
-                                              silent_pred_frames)
-            loss = loss + silent_sum / batch["num_samples"].float().clamp(min=1)
-        aux = model.pop_moe_aux_loss()
-        if aux is not None:
-            loss = loss + MOE_AUX_WEIGHT * aux
+        loss, counters = _train_loss(model, su, ph, batch, max_samples,
+                                     silent_pred_frames)
         grads = mesh.allreduce_grads_(torch.autograd.grad(loss, params), group,
                                       average=False)
         fused_adamw_(state.opt, grads)
@@ -310,15 +323,66 @@ def make_encoder_train_step(model: EMGEncoderTransformer, max_samples: int,
     return train_step
 
 
+def _train_loss(model, su, ph, batch: Batch, max_samples: int,
+                silent_pred_frames: int):
+    """The step's loss and counters from the global batch's predictions."""
+    n, f, d = su.shape
+    su_flat, ph_flat = su.reshape(n * f, d), ph.reshape(n * f, -1)
+    loss, counters, _ = voiced_batch_loss(su_flat, ph_flat, batch,
+                                          max_samples)
+    if silent_pred_frames > 0:
+        silent_sum, _ = silent_batch_loss(su_flat, ph_flat, batch,
+                                          silent_pred_frames)
+        loss = loss + silent_sum / batch["num_samples"].float().clamp(min=1)
+    aux = model.pop_moe_aux_loss()
+    if aux is not None:
+        loss = loss + MOE_AUX_WEIGHT * aux
+    return loss, counters
+
+
+def _pipelined_train_step(model: EMGEncoderTransformer, max_samples: int,
+                          silent_pred_frames: int, stages,
+                          num_microbatches: int) -> Callable:
+    replicated, own = pp.stage_parameters(model, stages)
+    params = replicated + own
+
+    def train_step(state: EncoderTrainState, batch: Batch
+                   ) -> Tuple[EncoderTrainState, Dict[str, torch.Tensor]]:
+        shift = random_shift(state.shift_rng)
+        windows = pp.microbatch_rows(batch["emg_windows"], num_microbatches,
+                                     stages)
+        su, ph = model.pipelined(windows, stages, num_microbatches,
+                                 train=True, shift=shift,
+                                 generator=state.dropout_rng)
+        su = pp.gather_microbatch_rows(su, num_microbatches, stages)
+        ph = pp.gather_microbatch_rows(ph, num_microbatches, stages)
+        loss, counters = _train_loss(model, su, ph, batch, max_samples,
+                                     silent_pred_frames)
+        grads = list(torch.autograd.grad(pp.last_stage_only(loss, stages),
+                                         params, materialize_grads=True))
+        pp.allreduce_stage_grads_(grads[:len(replicated)],
+                                  grads[len(replicated):], stages)
+        fused_adamw_(state.opt, grads)
+        state.step += 1
+        return state, {"loss": loss.detach(), **counters}
+
+    return train_step
+
+
 def make_encoder_eval_step(model: EMGEncoderTransformer,
-                           max_samples: int) -> Callable:
+                           max_samples: int, stages=None) -> Callable:
     """Returns ``eval_step(batch) -> (metrics, (su_flat, ph_flat))``: the
     eval-mode forward, the voiced loss, counters and confusion, and the flat
-    predictions for the silent path."""
+    predictions for the silent path. ``stages`` (a ``StageMesh``): the
+    whole batch passes the stage ranks as one microbatch, so each layer
+    sees one device's shapes."""
 
     @torch.no_grad()
     def eval_step(batch: Batch):
-        su, ph = model(batch["emg_windows"])
+        if stages is None:
+            su, ph = model(batch["emg_windows"])
+        else:
+            su, ph = model.pipelined(batch["emg_windows"], stages, 1)
         n, f, d = su.shape
         su_flat, ph_flat = su.reshape(n * f, d), ph.reshape(n * f, -1)
         loss, counters, confusion = voiced_batch_loss(su_flat, ph_flat, batch,
@@ -445,16 +509,25 @@ def _check_parallel(data_parallel: int, model_parallel: int,
                     pipeline_stages: int, pipeline_microbatches: int = 0,
                     size: int = 1) -> Tuple[int, int]:
     """Raise for what the port cannot run over ``size`` launched ranks;
-    returns ``(data, model)``."""
-    if int(pipeline_stages) > 1 and int(model_parallel) > 1:
+    returns ``(data, model)`` (with pipeline stages, ``(data, 1)``)."""
+    stages = int(pipeline_stages)
+    if stages > 1 and int(model_parallel) > 1:
         raise ValueError("pipeline_stages and model_parallel are mutually "
                          "exclusive (as in the JAX trainer)")
-    for name, value, most in (("pipeline_stages", pipeline_stages, 1),
-                              ("pipeline_microbatches", pipeline_microbatches,
-                               0)):
-        if int(value) > most:
-            raise ValueError(f"{name}={value}: not ported yet (ROADMAP.md §1 "
-                             f"item 2, pipeline_parallel.py)")
+    if stages > 1:
+        data = (int(data_parallel) if int(data_parallel) > 0
+                else max(1, size // stages))
+        if data * stages != size:
+            raise ValueError(
+                f"data_parallel {data} x pipeline_stages {stages} needs "
+                f"{data * stages} ranks, but {size} rank(s) were launched "
+                f"(parallel/pipeline_parallel.py): launch data x stages "
+                f"ranks (torchrun --nproc_per_node {data * stages})")
+        return data, 1
+    if int(pipeline_microbatches) > 0:
+        raise ValueError(
+            f"pipeline_microbatches={pipeline_microbatches} needs "
+            f"pipeline_stages above 1 (parallel/pipeline_parallel.py)")
     return tp.mesh_shape(size, data_parallel, max(1, int(model_parallel)))
 
 
@@ -468,6 +541,7 @@ def train_encoder_model(cfg: Config, trainset: EMGDataset, devset: EMGDataset,
                         data_parallel: int = -1,
                         model_parallel: int = 1,
                         pipeline_stages: int = 1,
+                        pipeline_microbatches: int = 0,
                         device=None, group=None,
                         ) -> Tuple[EMGEncoderTransformer, EncoderTrainState]:
     """Train the encoder; returns the model (last weights) and its state.
@@ -475,12 +549,14 @@ def train_encoder_model(cfg: Config, trainset: EMGDataset, devset: EMGDataset,
     The train split lives on the device (``EncoderDeviceCorpus``, stored at
     ``transfer_dtype``, "float16" | "float32") and each batch folds there
     from ``{rows, num_samples}`` descriptors; validation folds on the host
-    and runs in f32. ``group``: the ranks of a data-parallel run (see the
+    and runs in f32. ``group``: the ranks of a multi-rank run (see the
     module docstring)."""
     rank, size = mesh.rank_and_size(group)
     lead = rank == 0
-    _, model_size = _check_parallel(data_parallel, model_parallel,
-                                    pipeline_stages, size=size)
+    data_size, model_size = _check_parallel(
+        data_parallel, model_parallel, pipeline_stages,
+        pipeline_microbatches, size=size)
+    stages = max(1, int(pipeline_stages))
     dev = resolve_device(device)
     output_directory = Path(output_directory)
     if len(trainset) == 0 or len(devset) == 0:
@@ -493,29 +569,56 @@ def train_encoder_model(cfg: Config, trainset: EMGDataset, devset: EMGDataset,
     model = init_emg_encoder(
         cfg, torch.float32,
         torch.Generator().manual_seed(C.RANDOM_SEED)).to(dev)
-    if model_size > 1 and model.moe_experts > 0:
-        raise ValueError(
-            "an MoE encoder at model_parallel > 1: its capacity and token "
-            "dropping are global over the batch, which needs expert "
-            "parallelism, not ported yet (ROADMAP.md §1 item 3, "
-            "expert_parallel.py)")
+    if stages > 1:
+        if model.moe_experts > 0:
+            raise NotImplementedError(
+                "pipelined execution of MoE layers is unsupported — use "
+                "expert parallelism (parallel/expert_parallel.py) instead")
+        pp.stage_range(len(model.transformer.layers), 0, stages)
     mesh.replicate_module(model, group)
-    layout = (tp.create_mesh_2d(data_parallel, model_size, group)
-              if group is not None else tp.Mesh2D(None, None, None))
-    tp.shard_module_(model, layout)
+    stage_mesh = None
+    if stages > 1:
+        stage_mesh = pp.create_stage_mesh_2d(data_size, stages, group)
+        pp.shard_stages_(model, stage_mesh)
+        layout = tp.Mesh2D(None, stage_mesh.data, None,
+                           stage_mesh.data_rank, stage_mesh.data_size)
+    else:
+        layout = (tp.create_mesh_2d(data_parallel, model_size, group)
+                  if group is not None else tp.Mesh2D(None, None, None))
+        tp.shard_module_(model, layout)
     data_group = layout.data
 
     def full_state_dict(sd: Dict[str, torch.Tensor]
                         ) -> Dict[str, torch.Tensor]:
-        """``sd`` (this rank's slabs) in the reference layout: gathered over
-        the model ranks (a collective)."""
+        """``sd`` (this rank's slabs or stage) in the reference layout:
+        gathered over the model or stage ranks (a collective)."""
+        if stage_mesh is not None:
+            return pp.gather_stage_state_dict(model, stage_mesh, sd)
         if layout.model_size == 1:
             return sd
         return tp.gather_state_dict(model, layout, sd)
 
     window = EC.SEQ_LEN * 8
     n_win = max(1, -(-max_len // window))
-    mesh.check_divides(n_win, layout.data_size, "fold's window count")
+    pipeline = None
+    if stage_mesh is not None:
+        # One window per microbatch by default: the smallest bubble,
+        # M / (M + S - 1) of the ticks busy.
+        microbatches = (int(pipeline_microbatches)
+                        if int(pipeline_microbatches) > 0
+                        else max(1, n_win // layout.data_size))
+        if n_win % microbatches or (n_win // microbatches) % layout.data_size:
+            raise ValueError(
+                f"pipeline_microbatches {microbatches} must divide the "
+                f"fold's window count {n_win} into microbatches divisible "
+                f"by the data axis ({layout.data_size})")
+        pipeline = (stage_mesh, microbatches)
+        logging.info("Pipeline: stage %d of %d, data rank %d of %d, %d "
+                     "microbatches of %d windows", stage_mesh.stage_rank,
+                     stages, layout.data_rank, layout.data_size,
+                     microbatches, n_win // microbatches)
+    else:
+        mesh.check_divides(n_win, layout.data_size, "fold's window count")
     # Eval batches can need more windows than the training budget.
     eval_lengths = sorted(devset.emg_lengths, reverse=True)[:EC.BATCH_SIZE]
     n_win_eval = max(n_win, windows_needed(eval_lengths, EC.SEQ_LEN))
@@ -539,12 +642,14 @@ def train_encoder_model(cfg: Config, trainset: EMGDataset, devset: EMGDataset,
     corpus_silent = {k: v for k, v in silent.items()
                      if k != "silent_pred_frames"}
 
-    state = init_train_state(model)
+    params = (sum(pp.stage_parameters(model, stage_mesh), [])
+              if stage_mesh is not None else None)
+    state = init_train_state(model, params=params)
     train_step = make_encoder_train_step(model, max_samples,
                                          silent_pred_frames=silent_pred_frames,
-                                         group=data_group)
+                                         group=data_group, pipeline=pipeline)
     writer = MetricLogger(output_directory) if lead else None
-    eval_step = make_encoder_eval_step(model, max_samples)
+    eval_step = make_encoder_eval_step(model, max_samples, stage_mesh)
     device_corpus = EncoderDeviceCorpus(
         trainset, float_dtype=(torch.float16 if transfer_dtype == "float16"
                                else torch.float32), device=dev)
@@ -667,6 +772,13 @@ def train_encoder_model(cfg: Config, trainset: EMGDataset, devset: EMGDataset,
                 break
 
         flush_checkpoints(force=True)
+        held = sum(t.numel() * t.element_size() for t in (
+            *state.opt.params, *state.opt.exp_avg, *state.opt.exp_avg_sq,
+            *model.buffers()))
+        comm = stage_mesh.comm if stage_mesh is not None else layout.comm
+        logging.info("Train state held by this rank: %.1f MB; parallel "
+                     "messages over %d steps: %d, %.1f MB", held / 2**20,
+                     batch_idx, comm.calls, comm.bytes / 2**20)
     finally:
         if writer is not None:
             writer.close()
@@ -759,6 +871,8 @@ def main(args: argparse.Namespace) -> None:
                                 data_parallel=args.data_parallel,
                                 model_parallel=args.model_parallel,
                                 pipeline_stages=args.pipeline_stages,
+                                pipeline_microbatches=(
+                                    args.pipeline_microbatches),
                                 device=args.device, group=group)
             if lead:
                 done_file.write_text("Done training.\n")
@@ -809,11 +923,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "slabs of the encoder "
                              "(parallel/tensor_parallel.py).")
     parser.add_argument("--pipeline_stages", type=int, default=1,
-                        help="Pipeline depth; not ported yet, a value above "
-                             "1 raises.")
+                        help="Pipeline depth S: the transformer layers split "
+                             "into S stages, one per rank of each data "
+                             "replica ((ranks / S, S) ranks; "
+                             "parallel/pipeline_parallel.py). Exclusive "
+                             "with --model_parallel.")
     parser.add_argument("--pipeline_microbatches", type=int, default=0,
-                        help="Microbatches per pipelined step; not ported "
-                             "yet, a value above 0 raises.")
+                        help="Microbatches per pipelined step (0: one "
+                             "window per data rank each); must divide the "
+                             "fold's windows into parts the data axis "
+                             "divides. Needs --pipeline_stages above 1.")
     parser.add_argument("--save_interval_epochs", type=int, default=1,
                         help="Write the best/last checkpoints every N epochs "
                              "(best weights are snapshotted on the device at "

@@ -49,8 +49,12 @@ def test_parallel_modules_import_no_jax():
         "import ste_gan_torch.parallel.launch\n"
         "import ste_gan_torch.parallel.tensor_parallel\n"
         "import ste_gan_torch.parallel.sequence_parallel\n"
+        "import ste_gan_torch.parallel.pipeline_parallel\n"
+        "import ste_gan_torch.parallel.expert_parallel\n"
+        "import ste_gan_torch.parallel.multiprocess_axes\n"
         "from ste_gan_torch.parallel import (create_mesh_2d,\n"
-        "    synthesize_time_sharded)\n"
+        "    synthesize_time_sharded, create_stage_mesh_2d,\n"
+        "    pipeline_apply, create_expert_mesh, shard_moe_module_)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ste_gan_tpu')]\n"
         "assert not bad, bad\n"
@@ -63,12 +67,17 @@ def test_parallel_modules_import_no_jax():
 def test_parallel_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     """A rank runs on its card unless asked for the CPU, and NCCL is never
     swapped for gloo (or the card for the CPU) by itself."""
-    from ste_gan_torch.parallel import mesh, multiprocess, sequence_parallel
+    from ste_gan_torch.parallel import (
+        mesh, multiprocess, multiprocess_axes, sequence_parallel)
 
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         multiprocess.main(["--out", str(tmp_path / "out")])
+    for mode in ("pipeline", "expert"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            multiprocess_axes.main(["--mode", mode,
+                                    "--out", str(tmp_path / mode)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sequence_parallel.main(["--out", str(tmp_path / "sp")])
     with pytest.raises(RuntimeError, match="no CUDA device"):

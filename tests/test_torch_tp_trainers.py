@@ -34,7 +34,7 @@ devices and against the port at one rank.
   (mixed corpus, dropout 0.2) logs what one rank logs (rtol 1e-4 / atol
   1e-6).
 * The refusals: a world that is not data x model, pipeline stages with
-  model parallelism, an MoE encoder at model parallelism above 1.
+  model parallelism, a pipelined MoE encoder.
 
 The spawned runs go in a pool of three at a time beside the JAX runs.
 """
@@ -57,6 +57,7 @@ from ste_gan_torch.config import create_ste_gan_model_name
 from ste_gan_torch.data.synthetic import generate_synthetic_corpus
 from ste_gan_torch.models.emg_encoder import EMGEncoderTransformer as TEnc
 from ste_gan_torch.ops.fused_adamw import set_learning_rate
+from ste_gan_torch.parallel import pipeline_parallel as pp
 from ste_gan_torch.parallel import tensor_parallel as tp
 from ste_gan_torch.parallel.launch import run_ranks
 from ste_gan_torch.parallel.multiprocess import (
@@ -108,6 +109,7 @@ import sys, numpy as np, torch, torch.distributed as dist
 from ste_gan_torch.models.emg_encoder import EMGEncoderTransformer
 from ste_gan_torch.ops.fused_adamw import set_learning_rate
 from ste_gan_torch.parallel import mesh as M
+from ste_gan_torch.parallel import pipeline_parallel as pp
 from ste_gan_torch.parallel import tensor_parallel as tp
 from ste_gan_torch.train import encoder as tenc
 out, init = sys.argv[1], sys.argv[2]
@@ -365,8 +367,6 @@ def runs(tmp_path_factory):
     enc_batches = _encoder_batches(tmp)
     enc_files = _encoder_files(tmp, dict(GAN_ENCODER["params"],
                                          dropout=0.2))
-    moe_files = _encoder_files(tmp, dict(GAN_ENCODER["params"],
-                                         moe_experts=4, moe_top_k=2))
     out = {}
     with cf.ThreadPoolExecutor(max_workers=3) as pool:
         jobs = {name: pool.submit(_worker, tmp, name, d * m, "--model_parallel",
@@ -389,16 +389,6 @@ def runs(tmp_path_factory):
                 *_encoder_argv(enc_files, tmp / "enc_cli_tp"),
                 "--model_parallel", "2", "--dist_init_method", rdv])
 
-        def moe_refused():
-            try:
-                _spawn(tmp, "moe", 2, lambda rdv: [
-                    "-m", "ste_gan_torch.train.encoder",
-                    *_encoder_argv(moe_files, tmp / "moe"),
-                    "--model_parallel", "2", "--dist_init_method", rdv])
-            except RuntimeError as err:
-                return str(err)
-            return ""
-        jobs["moe"] = pool.submit(moe_refused)
         # Beside the spawned ranks: the JAX meshes and the world-1 runs.
         out["jax"] = {grid: _jax_gan(start, grid) for grid in ((4, 2), (2, 4))}
         cfg1, models1 = tiny_setup()
@@ -435,7 +425,6 @@ def runs(tmp_path_factory):
     out["enc"]["tp"] = (list(saved.pop("losses")), saved)
     out["enc_cli"] = (next((tmp / "enc_one").iterdir()),
                       next((results["enc_cli_tp"]).iterdir()))
-    out["moe"] = results["moe"]
     return out
 
 
@@ -653,4 +642,10 @@ def test_what_cannot_run_raises(runs):
         tenc._check_parallel(data_parallel=-1, model_parallel=2,
                              pipeline_stages=2, size=2)
     assert tenc._check_parallel(-1, 2, 1, size=4) == (2, 2)
-    assert "expert parallelism" in runs["moe"]
+    # An MoE encoder at model parallelism above 1 splits its experts over
+    # the model ranks (tests/test_torch_expert_parallel.py); pipelined it
+    # raises, as in JAX.
+    moe = TEnc(**dict(ENC_KW, moe_experts=4))
+    with pytest.raises(NotImplementedError, match="MoE"):
+        moe.pipelined(torch.zeros(2, 400, 8), pp.StageMesh(
+            None, None, None, num_stages=2), 2)
