@@ -8,6 +8,9 @@ Phases, each fatal on failure:
 1. the card's name and power limit (``nvidia-smi``); build every CUDA
    kernel of ``ste_gan_torch/csrc`` (one ``nvcc`` per source, in parallel)
    and print each compiled kernel's registers and spills (``ptxas -v``);
+   ``[probe]``: the cycles of one dependent f64 operation, one f32 DTW cell
+   step and one dependent shared-memory load (``latency_probe_kernel``),
+   which the recurrence kernels' chain bounds use;
 2. each kernel, through the wrapper the main path calls (``conv_fwd``,
    ``conv_dx``, ``conv_dw``, ``fused_adamw_``), against its plain PyTorch
    version on the card, at the shapes of the main path: the grouped conv's
@@ -51,14 +54,17 @@ Phases, each fatal on failure:
    bracketed by bare steps of the same process;
 6. encoder pre-training (``ste_gan_torch.train.encoder``):
    ``[dtw]`` the ``dtw_align_kernel`` against its plain version, alignments
-   identical at the mixed corpus's slot shapes, a 500 x 600 utterance, the
-   edges and tied costs, with kernel, plain and bound ms; ``[encoder]`` two narrow f32
-   encoder steps, voiced and mixed, on the card and on the CPU (TF32 off,
-   rtol 1e-3); ``[encoder-step]`` the bare train step at full width
-   (``configs/emg_encoder/conv_transformer.yaml``) on a folded batch of 80
-   windows, 3 warm-up and 10 timed steps with cuDNN TF32 on (PyTorch's
-   default, what the CLI gets) and off, every loss finite, and AdamW at the
-   encoder's parameter set; ``[encoder-trainer]`` the CLI at full width on
+   identical at the mixed corpus's slot shapes, a 500 x 600 utterance, a
+   1,000 x 1,000 slot whose direction codes exceed shared memory, 2,100
+   rows (strips), the edges and tied costs, with kernel, plain and bound
+   ms (the chain of diagonals and walk steps at the probe's latencies);
+   ``[encoder]`` two narrow f32 encoder steps, voiced and mixed, on the
+   card and on the CPU (TF32 off, rtol 1e-3); ``[encoder-step]`` the bare
+   train step at full width (``configs/emg_encoder/conv_transformer.yaml``)
+   on a folded batch of 80 windows, 3 warm-up and 10 timed steps with
+   cuDNN TF32 on (PyTorch's default, what the CLI gets) and off, every
+   loss finite, and AdamW at the encoder's parameter set;
+   ``[encoder-trainer]`` the CLI at full width on
    the port's synthetic corpus, voiced for 3 epochs and mixed
    (``--silent_fraction 0.25``, ``--include_silent``) for 2, launch counts
    zeroed before each run and above 0 after it (DTW in the mixed run), then
@@ -104,8 +110,10 @@ Phases, each fatal on failure:
    its plain version on the card at the prep's shapes (8 rows x 15,000
    samples through the eight-stage notch-plus-drift cascade, 8 x 4,000
    through the Hilbert envelope's 20 Hz low-pass, 512 rows of 1,000-4,000
-   samples), error relative to ``max|x|`` within 1e-10, kernel, plain and
-   bound ms (the chain of dependent f64 operations, bytes and operations);
+   samples, all resident in shared memory) and 8 x 40,000 through the
+   cascade (streamed), bit for bit (max |difference| 0), kernel, plain and
+   bound ms (the chain of dependent f64 operations at the probe's latency,
+   bytes and operations);
    the MFCC frontend and ``get_emg_features`` on the card against the CPU;
 12. ``[prep]``: ``python -m ste_gan_torch.clean_audio`` then
    ``python -m ste_gan_torch.prep_data`` on the card over a synthetic raw
@@ -199,9 +207,6 @@ HBM_BYTES_PER_S = 3.35e12
 #: Dense peaks of one H100 SXM (NVIDIA's data sheet); float64 is the CUDA
 #: cores' rate, which the filter kernel uses.
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "float64": 34e12}
-#: Latency of one dependent f64 add or multiply, in SM cycles (assumed; not
-#: measured here), for the filter kernel's dependency-chain bound.
-FP64_DEP_CYCLES = 8
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}  # max |kernel - plain| / max |plain|
 #: Max |difference| of the full-width f32 synthesis (TF32 off) between
 #: bucketed and exact, and between streaming interiors and the full
@@ -249,11 +254,41 @@ def cuda_time(fn, reps: int = 5, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, ops: float, dtype_name: str):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS_PER_S[dtype_name]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+def bound_ms(nbytes: float, ops: float, dtype_name: str,
+             chain_ms: float = 0.0):
+    """The least time of a call: bytes over the memory rate, operations
+    over the type's peak rate and, for a recurrence, its chain of dependent
+    steps at the probe's latencies; the larger, and which it is."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / PEAK_OPS_PER_S[dtype_name]
+    best = max(t_bytes, t_ops, chain_ms)
+    return best, ("chain" if best == chain_ms and chain_ms > t_bytes
+                  else "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_probe(torch, build, card):
+    """The card's latencies behind the recurrence kernels' chain bounds
+    (``latency_probe_kernel``, ``ste_gan_torch/csrc/probe.cu``): cycles per
+    dependent f64 operation (``__dadd_rn``, ``__dmul_rn``, ``__dsub_rn``),
+    per f32 DTW cell step (``fminf``, ``fminf``, ``__fadd_rn``) and per
+    dependent shared-memory load, one thread timing each chain with
+    ``clock64()``, and the maximum SM clock they are counted at."""
+    seeds = torch.tensor((0.25, 1.5, 0.5, 3.0, 7.0, 9.0, 8.0, 0.5, 5.0),
+                         dtype=torch.float64, device="cuda")
+    out = torch.zeros(4, dtype=torch.float64, device="cuda")
+    build.check(build.load("probe").latency_probe(
+        seeds.data_ptr(), out.data_ptr(), 4096,
+        torch.cuda.current_stream().cuda_stream), "latency_probe")
+    f64_op, f32_cell, smem, checksum = out.tolist()
+    if not checksum == checksum:
+        raise SystemExit("latency_probe: its chains did not stay finite")
+    cycles = {"f64_op": f64_op, "f32_cell_step": f32_cell, "smem_load": smem}
+    clock = sm_clock_hz()
+    print(f"[probe] cycles per dependent f64 operation (__dadd_rn, __dmul_rn,"
+          f" __dsub_rn) {f64_op:.3f}; per f32 DTW cell step (fminf, fminf, "
+          f"__fadd_rn) {f32_cell:.3f}; per dependent shared-memory load "
+          f"{smem:.3f}; at {clock / 1e9:.3f} GHz ({card})", flush=True)
+    return {"cycles": cycles, "clock_hz": clock}
 
 
 def ptxas_summary(log: str):
@@ -743,27 +778,41 @@ def check_trainer(torch, counters, bare_ms: float, card: str):
     return report
 
 
-def dtw_bound(dtw_ends, t1: int, t2: int):
-    """Bytes and operations bound of one ``dtw_alignment_batched`` call over
-    the valid blocks of ``dtw_ends``: each valid cell reads its cost and
-    writes and reads back its DP value (12 bytes, 3 f32 operations), the
-    ends are read and the alignments written; and the dependency chain, the
-    longest slot's ``lt + lp - 1`` anti-diagonals plus its backtrace of up
-    to ``lt + lp`` steps."""
+def dtw_bound(dtw, costs, ends, latency):
+    """The least time of one ``dtw_alignment_batched`` call on these inputs:
+    bytes (each valid cell's cost read once, the ends read, the alignments
+    written), operations (3 f32 a valid cell) and the chain, the longest
+    slot's ``lt + lp - 1`` anti-diagonals at one dependent f32 cell step
+    each plus its walk's steps (counted on these costs by the plain
+    direction-code walk) at one dependent shared-memory load each, at the
+    probe's cycles and the card's maximum clock. Returns (bound ms, its
+    kind, the chain's diagonals and steps of the slot that sets it)."""
+    s, t1, t2 = costs.shape
+    dtw_ends = ends.tolist()
     cells = sum((i + 1) * (j + 1) for i, j in dtw_ends if i >= 0 and j >= 0)
-    nbytes = 12.0 * cells + 8.0 * len(dtw_ends) + 4.0 * len(dtw_ends) * t1
-    chain = max([2 * (i + j + 2) - 1 for i, j in dtw_ends if i >= 0 and j >= 0]
-                or [0])
-    return nbytes, 3.0 * cells, chain
+    nbytes = 4.0 * cells + 8.0 * s + 4.0 * s * t1
+    _, steps = dtw.dtw_backtrace_codes_plain(dtw.dtw_directions_plain(costs),
+                                             ends)
+    cyc = latency["cycles"]
+    chains = [((i + j + 1) * cyc["f32_cell_step"] + int(n) * cyc["smem_load"],
+               i + j + 1, int(n))
+              for (i, j), n in zip(dtw_ends, steps.tolist())
+              if i >= 0 and j >= 0] or [(0.0, 0, 0)]
+    chain_cycles, diagonals, walk = max(chains)
+    b_ms, b_by = bound_ms(nbytes, 3.0 * cells, "float32",
+                          1e3 * chain_cycles / latency["clock_hz"])
+    return b_ms, b_by, diagonals, walk
 
 
-def check_dtw(torch, dtw):
+def check_dtw(torch, dtw, latency):
     """``dtw_align_kernel`` against its plain version on the card: the
     alignments must be identical at the mixed corpus's slot shapes (24 slots
-    of up to 259 x 259, one empty), a long real-utterance case (500 x 600)
-    and the edges (an empty slot, 1 x N, N x 1, T1 > T2, ends short of the
-    padded shape, integer costs that tie). Kernel and plain ms from CUDA
-    events at the first two."""
+    of up to 259 x 259, one empty), a long real-utterance case (500 x 600),
+    a slot whose direction codes exceed shared memory (1,000 x 1,000: the
+    global-codes variant), rows past one block (2,100 x 300: strips) and
+    the edges (an empty slot, 1 x N, N x 1, T1 > T2, ends short of the
+    padded shape, integer costs that tie). Kernel ms from CUDA events at
+    the first three (plain ms at the first two), bound ms at every case."""
     import numpy as np
 
     rng = np.random.default_rng(5)
@@ -777,6 +826,10 @@ def check_dtw(torch, dtw):
     mixed_ends[1] = (-1, -1)
     cases = [("mixed corpus slots", (24, 259, 259), mixed_ends),
              ("long utterance", (1, 500, 600), np.array([[499, 599]], np.int32)),
+             ("codes past shared memory", (1, 1000, 1000),
+              np.array([[999, 999]], np.int32)),
+             ("rows past one block", (2, 2100, 300),
+              np.array([[2099, 299], [1500, 200]], np.int32)),
              ("empty slot", (2, 40, 40), np.array([[-1, -1], [39, 39]], np.int32)),
              ("1 x N", (2, 1, 300), np.array([[0, 299], [0, 10]], np.int32)),
              ("N x 1", (2, 300, 1), np.array([[299, 0], [10, 0]], np.int32)),
@@ -786,6 +839,8 @@ def check_dtw(torch, dtw):
               ends_between(4, 1, 150, 120)),
              ("integer costs (ties)", (4, 120, 90),
               ends_between(4, 60, 120, 90))]
+    timed = ("mixed corpus slots", "long utterance", "codes past shared memory")
+    plain_timed = timed[:2]
     rows, summary = [], None
     for name, shape, ends in cases:
         values = (rng.integers(0, 3, shape) if "ties" in name
@@ -795,22 +850,32 @@ def check_dtw(torch, dtw):
         got = dtw.dtw_alignment_batched(costs, ends_t)
         want = dtw.dtw_alignment_plain(costs, ends_t)
         torch.cuda.synchronize()
-        mismatched = int((got != want).sum())
-        nbytes, ops, chain = dtw_bound(ends.tolist(), shape[1], shape[2])
-        b_ms, b_by = bound_ms(nbytes, ops, "float32")
+        mismatched = int((got != want).any(dim=1).sum())
+        b_ms, b_by, diagonals, walk = dtw_bound(dtw, costs, ends_t, latency)
+        plan = dtw.plan_dtw(shape[1], shape[2])
         row = {"case": name, "shape": list(shape), "mismatched_rows":
                mismatched, "max_abs_err": float((got - want).abs().max()),
-               "bound_ms": b_ms, "bound_by": b_by, "chain_steps": chain}
-        if name in ("mixed corpus slots", "long utterance"):
-            row.update(ms=cuda_time(lambda: dtw.dtw_alignment_batched(
-                costs, ends_t)), plain_ms=cuda_time(
+               "bound_ms": b_ms, "bound_by": b_by, "chain_diagonals":
+               diagonals, "chain_walk_steps": walk,
+               "variant": ("shared codes" if plan.shared_codes
+                           else "global codes")
+               + (", strips" if shape[1] > plan.threads else ""),
+               "smem_bytes": plan.smem_bytes}
+        if name in timed:
+            row["ms"] = cuda_time(lambda: dtw.dtw_alignment_batched(
+                costs, ends_t))
+        if name in plain_timed:
+            row["plain_ms"] = cuda_time(
                 lambda: dtw.dtw_alignment_plain(costs, ends_t), reps=2,
-                warmup=1))
+                warmup=1)
         rows.append(row)
-        print(f"[dtw] {name} {list(shape)}: identical {mismatched == 0}"
-              + (f"; kernel {row['ms']:.4f} ms plain {row['plain_ms']:.2f} ms "
-                 f"bound {b_ms:.5f} ms ({b_by}); chain of {chain} dependent "
-                 f"steps" if "ms" in row else ""), flush=True)
+        print(f"[dtw] {name} {list(shape)} ({row['variant']}, "
+              f"{plan.smem_bytes} B of shared memory): identical "
+              f"{mismatched == 0}; bound {b_ms:.5f} ms ({b_by}: {diagonals} "
+              f"diagonals + {walk} walk steps)"
+              + (f"; kernel {row['ms']:.4f} ms" if "ms" in row else "")
+              + (f", plain {row['plain_ms']:.2f} ms" if "plain_ms" in row
+                 else ""), flush=True)
         if mismatched:
             raise SystemExit(f"dtw_align_kernel disagrees with its plain "
                              f"version: {row}")
@@ -818,6 +883,7 @@ def check_dtw(torch, dtw):
             summary = {k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                            "bound_ms", "bound_by")}
             summary["library_ms"] = None
+    summary["mismatched_rows"] = sum(r["mismatched_rows"] for r in rows)
     return rows, summary
 
 
@@ -1749,8 +1815,8 @@ def check_serve(torch, card, gan_run, encoder_runs, artifact):
 
 
 def sm_clock_hz() -> float:
-    """The card's maximum SM clock (``nvidia-smi``), for the filter
-    kernel's dependency-chain bound."""
+    """The card's maximum SM clock (``nvidia-smi``), for the recurrence
+    kernels' chain bounds."""
     import subprocess
 
     out = subprocess.run(
@@ -1760,30 +1826,30 @@ def sm_clock_hz() -> float:
     return 1e6 * float(out.stdout.strip().splitlines()[0])
 
 
-def filtfilt_bound(iir, lengths, stages, clock_hz: float):
+def filtfilt_bound(iir, lengths, stages, latency):
     """The least time of one ``filtfilt_cascade`` call, from its inputs:
 
     * the chain: every sample of a pass waits for the previous one's state,
       three dependent f64 operations each (``y = z0 + b0 x``, ``y a1``,
       ``z1' - y a1``), over ``n + 2p`` samples, two passes, every stage, for
-      the longest row; at ``FP64_DEP_CYCLES`` cycles per dependent operation
-      (assumed) and the card's maximum SM clock;
+      the longest row; at the probe's cycles per dependent f64 operation and
+      the card's maximum SM clock;
     * bytes: each row read once and written once (8 bytes a sample);
     * operations: ``2 + 4 (N - 1)`` f64 operations per sample and pass of
       an ``N``-tap stage, over every row, at the f64 peak.
 
-    Returns (bound ms, "bytes" or "operations", the chain's steps, the three
-    times in ms)."""
+    Returns (bound ms, "chain", "bytes" or "operations", the chain's steps,
+    the three times in ms)."""
     _, taps, pads = iir.prepare_stages(stages)
     steps = max(sum(2 * (n + 2 * int(p)) for p in pads) for n in lengths)
-    chain_ms = 1e3 * 3 * steps * FP64_DEP_CYCLES / clock_hz
-    bytes_ms = 1e3 * 16.0 * sum(lengths) / HBM_BYTES_PER_S
+    chain_ms = (1e3 * 3 * steps * latency["cycles"]["f64_op"]
+                / latency["clock_hz"])
     ops = sum(2 * (n + 2 * int(p)) * (2 + 4 * (int(t) - 1))
               for n in lengths for t, p in zip(taps, pads))
-    ops_ms = 1e3 * ops / PEAK_OPS_PER_S["float64"]
-    best = max(chain_ms, bytes_ms, ops_ms)
-    return best, ("bytes" if best == bytes_ms else "operations"), steps, {
-        "chain_ms": chain_ms, "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+    best, kind = bound_ms(16.0 * sum(lengths), ops, "float64", chain_ms)
+    return best, kind, steps, {
+        "chain_ms": chain_ms, "bytes_ms": 1e3 * 16.0 * sum(lengths)
+        / HBM_BYTES_PER_S, "ops_ms": 1e3 * ops / PEAK_OPS_PER_S["float64"]}
 
 
 def emg_chain_stages():
@@ -1793,29 +1859,32 @@ def emg_chain_stages():
     return emg_dsp.notch_designs(60, 1000) + [emg_dsp.drift_design(1000)]
 
 
-def check_etl(torch, iir, card):
+def check_etl(torch, iir, card, latency):
     """``filtfilt_kernel`` against its plain version on the card at the
     prep's shapes: 8 rows of 15,000 samples (a 5 s utterance at 1 kHz with
     its two neighbours) through the eight-stage notch-plus-drift cascade,
     8 rows of 4,000 (5 s at 800 Hz) through the Hilbert envelope's 20 Hz
-    low-pass, and 512 rows of mixed lengths (1,000-4,000) through the
-    cascade. Error relative to ``max|x|``, tolerance 1e-10 (fatal); kernel
-    ms (CUDA events), plain ms (one call), bound ms. Then the MFCC frontend
+    low-pass, 512 rows of mixed lengths (1,000-4,000) through the cascade
+    (all three resident in shared memory), and 8 rows of 40,000 through the
+    cascade, past a block's shared memory (streamed). The kernel must equal
+    its plain version bit for bit (max |difference| 0, fatal); kernel ms
+    (CUDA events), plain ms (one call), bound ms. Then the MFCC frontend
     and ``get_emg_features`` on the card against the port's CPU run."""
     from ste_gan_torch.etl import audio_dsp, emg_dsp, filters
 
-    clock = sm_clock_hz()
     rng = np.random.default_rng(11)
     lowpass = [filters.butter(4, 20, fs=800, btype="low")]
-    cases = [("emg chain, 8 x 15000", [15_000] * 8, emg_chain_stages()),
-             ("hilbert low-pass, 8 x 4000", [4_000] * 8, lowpass),
+    cases = [("emg chain, 8 x 15000", [15_000] * 8, emg_chain_stages(), rng),
+             ("hilbert low-pass, 8 x 4000", [4_000] * 8, lowpass, rng),
              ("batch of 512 mixed lengths",
               [int(n) for n in rng.integers(1_000, 4_001, 512)],
-              emg_chain_stages())]
-    rows, summary = [], None
-    for name, lengths, stages in cases:
+              emg_chain_stages(), rng),
+             ("emg chain, 8 x 40000 (streamed)", [40_000] * 8,
+              emg_chain_stages(), np.random.default_rng(13))]
+    rows = []
+    for name, lengths, stages, data_rng in cases:
         width = max(lengths)
-        x = (rng.normal(0.0, 20.0, (len(lengths), width)) + 40.0
+        x = (data_rng.normal(0.0, 20.0, (len(lengths), width)) + 40.0
              + 200.0 * np.sin(np.arange(width) / 60.0))
         xs = torch.from_numpy(x).cuda()
         t0 = time.perf_counter()
@@ -1825,31 +1894,34 @@ def check_etl(torch, iir, card):
         got = iir.filtfilt_cascade(xs, lengths, stages)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        rel = err / float(xs.abs().max())
-        b_ms, b_by, steps, parts = filtfilt_bound(iir, lengths, stages, clock)
+        b_ms, b_by, steps, parts = filtfilt_bound(iir, lengths, stages,
+                                                  latency)
+        plan = iir.plan_filtfilt(width, int(iir.prepare_stages(stages)[2].max()))
         row = {"case": name, "rows": len(lengths), "samples": sum(lengths),
-               "stages": len(stages), "max_abs_err": err, "max_rel_err": rel,
-               "tol": 1e-10, "ms": cuda_time(
+               "stages": len(stages), "max_abs_err": err, "tol": 0.0,
+               "variant": "resident" if plan.resident else "streamed",
+               "smem_bytes": plan.smem_bytes, "chunks": plan.chunks,
+               "ms": cuda_time(
                    lambda: iir.filtfilt_cascade(xs, lengths, stages)),
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                "chain_steps": steps, "library_ms": None, **parts}
         rows.append(row)
-        print(f"[etl] filtfilt_kernel {name}, {len(stages)} stages: rel err "
-              f"{rel:.3e} (tol 1e-10); kernel {row['ms']:.3f} ms, plain "
-              f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}: chain of "
-              f"{steps} samples x 3 dependent f64 ops = {parts['chain_ms']:.4f}"
-              f" ms at {FP64_DEP_CYCLES} cycles and {clock / 1e9:.3f} GHz; "
-              f"bytes {parts['bytes_ms']:.5f} ms; ops {parts['ops_ms']:.5f} "
-              f"ms) ({card})", flush=True)
-        if not rel <= 1e-10:
+        print(f"[etl] filtfilt_kernel {name}, {len(stages)} stages "
+              f"({row['variant']}, {plan.smem_bytes} B of shared memory): "
+              f"max|diff| {err!r} (must be 0); kernel {row['ms']:.3f} ms, "
+              f"plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}: "
+              f"{steps} samples x 3 dependent f64 ops = "
+              f"{parts['chain_ms']:.4f} ms at "
+              f"{latency['cycles']['f64_op']:.3f} cycles and "
+              f"{latency['clock_hz'] / 1e9:.3f} GHz; bytes "
+              f"{parts['bytes_ms']:.5f} ms; ops {parts['ops_ms']:.5f} ms) "
+              f"({card})", flush=True)
+        if err != 0.0:
             raise SystemExit(f"filtfilt_kernel disagrees with its plain "
                              f"version: {row}")
-        if summary is None:
-            summary = {k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                           "bound_ms", "bound_by",
-                                           "library_ms")}
-            summary["max_rel_err"] = max(r["max_rel_err"] for r in rows)
-    summary["max_rel_err"] = max(r["max_rel_err"] for r in rows)
+    summary = {k: rows[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}
+    summary["max_abs_err"] = max(r["max_abs_err"] for r in rows)
 
     # The MFCC frontend and the EMG features on the card against the CPU.
     audio = torch.from_numpy(0.1 * rng.normal(size=5 * 16_000))
@@ -4235,7 +4307,8 @@ def main() -> int:
         for line in ptxas_summary(log):
             print(f"[build] {name}: {line}", flush=True)
 
-    report = {"card": card, "build_s": build_s}
+    latency = check_probe(torch, build, card)
+    report = {"card": card, "build_s": build_s, "probe": latency}
     conv_rows, conv_summary = check_grouped_conv(torch, gc, F)
     report["conv"] = conv_rows
     report["conv_edges"] = check_conv_edges(torch, gc)
@@ -4313,7 +4386,7 @@ def main() -> int:
     from ste_gan_torch.ops import dtw
     from ste_gan_torch.train import encoder as tenc
 
-    dtw_rows, dtw_summary = check_dtw(torch, dtw)
+    dtw_rows, dtw_summary = check_dtw(torch, dtw, latency)
     report["dtw"] = dtw_rows
     report["encoder_reference"] = check_encoder_reference(
         torch, tenc, init_emg_encoder, Config)
@@ -4353,7 +4426,7 @@ def main() -> int:
         # and prep CLIs over a raw tree at the corpus's shapes. ----
         from ste_gan_torch.ops import iir
 
-        report["etl"], iir_summary = check_etl(torch, iir, card)
+        report["etl"], iir_summary = check_etl(torch, iir, card, latency)
         lap("etl")
         report["prep"] = check_prep(torch, iir, card, report["etl"])
         lap("prep")

@@ -41,10 +41,13 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "adamw_multi_tensor": [_P] * 7 + [_I, _I, _P, _P, _P],
     },
     "dtw": {
-        "dtw_align": [_P] * 4 + [_I] * 3 + [_P],
+        "dtw_align": [_P] * 4 + [_I] * 7 + [_P],
     },
     "iir": {
-        "filtfilt_cascade": [_P] * 5 + [_I] * 3 + [_P],
+        "filtfilt_cascade": [_P] * 5 + [_I] * 5 + [_P],
+    },
+    "probe": {
+        "latency_probe": [_P, _P, _I, _P],
     },
 }
 

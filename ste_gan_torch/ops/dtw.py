@@ -23,13 +23,18 @@ Each slot ``s`` has its own end cell ``ends[s] = (i, j)``: only the block
 its alignment stay 0, and a slot with ``i < 0`` or ``j < 0`` (an empty
 slot) aligns to all zeros.
 
+:func:`dtw_directions_plain` and :func:`dtw_backtrace_codes_plain` are the
+kernel's own formulation: a 2-bit direction code per cell, from the
+backtrace's comparisons in its order, and a walk that reads one code a
+step. :func:`plan_dtw` says whether a slot's codes fit in shared memory.
+
 :func:`dtw_alignment_batched` runs the plain version only for CPU tensors;
 for CUDA tensors it launches the kernel or raises.
 ``dtw_alignment_batched.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -116,6 +121,49 @@ def dtw_backtrace_plain(dtw: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
     return out
 
 
+#: Direction codes of the kernel's backtrace: the first minimal predecessor
+#: in the order up, left, diag.
+UP, LEFT, DIAG = 0, 1, 2
+
+
+def dtw_directions_plain(costs: torch.Tensor) -> torch.Tensor:
+    """Each cell's direction code ``[S, T1, T2]`` uint8 as the kernel
+    stores it: the first minimal predecessor in the order up, left, diag,
+    from the comparisons ``up <= left and up <= diag`` (up), else
+    ``left <= diag`` (left), else diag, on the f32 values that enter the
+    cell's min. The first row and column (never stepped from) hold 0."""
+    dtw = dtw_matrix_plain(costs)
+    up, left, diag = dtw[:, :-1, 1:], dtw[:, 1:, :-1], dtw[:, :-1, :-1]
+    inner = torch.where((up <= left) & (up <= diag), UP,
+                        torch.where(left <= diag, LEFT, DIAG))
+    codes = torch.zeros(dtw.shape, dtype=torch.uint8, device=costs.device)
+    codes[:, 1:, 1:] = inner.to(torch.uint8)
+    return codes
+
+
+def dtw_backtrace_codes_plain(codes: torch.Tensor, ends: torch.Tensor):
+    """The kernel's walk over the direction codes ``[S, T1, T2]``: from each
+    slot's end cell (clamped to the padded shape) while ``i > 0`` and
+    ``j > 0``, ``out[i] = j``, then one step as the cell's code says.
+    Returns the alignments ``[S, T1]`` int32 and each slot's number of
+    steps ``[S]`` int64 (the walk's length, what its chain is made of)."""
+    s, t1, t2 = codes.shape
+    out = torch.zeros((s, t1), dtype=torch.int32, device=codes.device)
+    steps = torch.zeros(s, dtype=torch.int64, device=codes.device)
+    slot = torch.arange(s, device=codes.device)
+    i = ends[:, 0].long().clamp(max=t1 - 1)
+    j = ends[:, 1].long().clamp(max=t2 - 1)
+    for _ in range(t1 + t2 - 2):  # never waits for the device
+        active = (i > 0) & (j > 0)
+        ic, jc = i.clamp(min=0), j.clamp(min=0)
+        out[slot, ic] = torch.where(active, jc.int(), out[slot, ic])
+        code = codes[slot, ic, jc].long()
+        steps += active.long()
+        i = torch.where(active & (code != LEFT), i - 1, i)
+        j = torch.where(active & (code != UP), j - 1, j)
+    return out, steps
+
+
 def dtw_alignment_plain(costs: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
     return dtw_backtrace_plain(dtw_matrix_plain(costs), ends)
 
@@ -125,14 +173,58 @@ def dtw_alignment_plain(costs: torch.Tensor, ends: torch.Tensor) -> torch.Tensor
 # ---------------------------------------------------------------------------
 
 
+#: Shared memory a block may hold on Hopper (bytes).
+SMEM_LIMIT = 232448
+_MAX_THREADS, _HEADER = 1024, 256
+#: Bytes a thread's share of the cost tiles takes: 3 tiles of 8 + 1 floats.
+_TILE_BYTES = 4 * 3 * (8 + 1)
+
+
+class DtwPlan(NamedTuple):
+    """How ``dtw_align_kernel`` takes slots of ``[t1, t2]`` costs:
+    ``threads`` per block (one a row, strips of them when ``t1`` is
+    larger), ``words_per_row`` of 16 direction codes, ``shared_codes``
+    (else a global scratch), ``smem_bytes`` per block."""
+    threads: int
+    words_per_row: int
+    shared_codes: bool
+    smem_bytes: int
+
+
+def plan_dtw(t1: int, t2: int) -> DtwPlan:
+    """The kernel's launch for ``[t1, t2]`` slots: ``min(1024, t1)``
+    threads rounded up to a warp; 256 bytes of warp-edge values, three
+    cost tiles of 8 diagonals a thread, a boundary row of ``t2`` floats
+    when the rows come in strips, and the codes (``4 t1 ceil(t2 / 16)``
+    bytes) when they fit within a block's shared memory. Raises if even
+    the rest does not fit."""
+    threads = min(_MAX_THREADS, -(-t1 // 32) * 32)
+    wpr = -(-t2 // 16)
+    header = (_HEADER + _TILE_BYTES * threads
+              + (4 * (-(-t2 // 4) * 4) if t1 > threads else 0))
+    if header > SMEM_LIMIT:
+        raise ValueError(f"DTW of {t1} x {t2}: the boundary row of {t2} "
+                         f"columns exceeds a block's shared memory")
+    codes = 4 * t1 * wpr
+    if header + codes <= SMEM_LIMIT:
+        return DtwPlan(threads, wpr, True, header + codes)
+    return DtwPlan(threads, wpr, False, header)
+
+
 def _launch(costs: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
     s, t1, t2 = costs.shape
+    plan = plan_dtw(t1, t2)
     out = torch.empty((s, t1), dtype=torch.int32, device=costs.device)
-    # DP scratch; the kernel touches only each slot's valid block.
-    dp = torch.empty_like(costs)
+    # Direction codes past shared memory: a global scratch, each slot's
+    # valid block written before the walk reads it.
+    codes = (None if plan.shared_codes else torch.empty(
+        (s, t1, plan.words_per_row), dtype=torch.int32, device=costs.device))
     lib = build.load("dtw")
-    err = lib.dtw_align(costs.data_ptr(), ends.data_ptr(), dp.data_ptr(),
-                        out.data_ptr(), s, t1, t2,
+    err = lib.dtw_align(costs.data_ptr(), ends.data_ptr(),
+                        None if codes is None else codes.data_ptr(),
+                        out.data_ptr(), s, t1, t2, plan.threads,
+                        plan.words_per_row, int(plan.shared_codes),
+                        plan.smem_bytes,
                         torch.cuda.current_stream().cuda_stream)
     build.check(err, "dtw_align")
     return out

@@ -17,12 +17,14 @@ one backward from ``zi * y[-1]``, the padding stripped. Each row has its
 own length; every stage sees the previous stage's output. All in f64.
 
 :func:`filtfilt_cascade` runs the plain version only for CPU tensors; for
-CUDA tensors it launches the kernel or raises.
+CUDA tensors it launches the kernel or raises. The kernel takes a
+row-major buffer (:func:`kernel_buffer`) and runs each row resident in
+shared memory or streamed through a ring, as :func:`plan_filtfilt` says.
 ``filtfilt_cascade.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple, Union
+from typing import List, NamedTuple, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -127,7 +129,51 @@ def filtfilt_plain(buf: torch.Tensor, lengths: List[int], p0: int,
 # ---------------------------------------------------------------------------
 
 
-def _launch(buf, lengths, coefs, taps, padlens, p0) -> None:
+#: Shared memory a block may hold on Hopper (bytes).
+SMEM_LIMIT = 232448
+#: The streamed variant's ring: slots of CHUNK f64 each (``csrc/iir.cu``).
+CHUNK, SLOTS = 2048, 4
+_RESIDENT_HEADER, _STREAM_HEADER = 16, 128
+
+
+class FiltfiltPlan(NamedTuple):
+    """How ``filtfilt_kernel`` takes rows of ``width`` f64 (padding
+    included): ``resident`` stages each row in shared memory whole,
+    otherwise the passes stream it through a ring; ``smem_bytes`` per block;
+    ``chunks`` the ring chunks a row spans (1 when resident)."""
+    resident: bool
+    width: int
+    smem_bytes: int
+    chunks: int
+
+
+def plan_filtfilt(length: int, p0: int) -> FiltfiltPlan:
+    """The kernel's variant for rows of ``length`` samples padded by ``p0``
+    at both ends: the row buffer's ``width`` is ``length + 2 p0`` rounded up
+    to even (16-byte rows for the bulk copies); a row stays resident when
+    ``16 + 8 width`` bytes fit in a block's shared memory."""
+    width = length + 2 * p0
+    width += width % 2
+    resident_bytes = _RESIDENT_HEADER + 8 * width
+    if resident_bytes <= SMEM_LIMIT:
+        return FiltfiltPlan(True, width, resident_bytes, 1)
+    return FiltfiltPlan(False, width, _STREAM_HEADER + 8 * SLOTS * CHUNK,
+                        -(-width // CHUNK))
+
+
+def kernel_buffer(rows: torch.Tensor, p0: int, width: int) -> torch.Tensor:
+    """The kernel's row-major buffer ``[R, width]``: row ``r``'s samples at
+    ``[p0, p0 + L)``, zeros around them."""
+    buf = rows.new_zeros(rows.shape[0], width)
+    buf[:, p0:p0 + rows.shape[1]] = rows.detach()
+    return buf
+
+
+def _launch(rows, lengths, coefs, taps, padlens, p0) -> torch.Tensor:
+    """The cascade by ``filtfilt_kernel``; returns the filtered ``[R, L]``
+    view of the kernel's buffer."""
+    plan = plan_filtfilt(rows.shape[1], p0)
+    buf = kernel_buffer(rows, p0, plan.width)
     dev = buf.device
     lengths_t = torch.tensor(lengths, dtype=torch.int32, device=dev)
     coefs_t = torch.from_numpy(coefs).to(dev)
@@ -136,9 +182,11 @@ def _launch(buf, lengths, coefs, taps, padlens, p0) -> None:
     lib = build.load("iir")
     err = lib.filtfilt_cascade(buf.data_ptr(), lengths_t.data_ptr(),
                                coefs_t.data_ptr(), taps_t.data_ptr(),
-                               pads_t.data_ptr(), buf.shape[1], p0,
-                               len(taps), torch.cuda.current_stream().cuda_stream)
+                               pads_t.data_ptr(), buf.shape[0], plan.width,
+                               p0, len(taps), int(not plan.resident),
+                               torch.cuda.current_stream().cuda_stream)
     build.check(err, "filtfilt_cascade")
+    return buf[:, p0:p0 + rows.shape[1]]
 
 
 def _check(rows, lengths, stages):
@@ -158,13 +206,13 @@ def _check(rows, lengths, stages):
 
 
 def _run(rows, lengths, coefs, taps, padlens, p0, plain: bool):
-    buf = rows.new_zeros(rows.shape[1] + 2 * p0, rows.shape[0])
-    buf[p0:p0 + rows.shape[1]] = rows.detach().T
-    if plain:
+    if plain:  # the time-major buffer of the plain version
+        buf = rows.new_zeros(rows.shape[1] + 2 * p0, rows.shape[0])
+        buf[p0:p0 + rows.shape[1]] = rows.detach().T
         filtfilt_plain(buf, lengths, p0, coefs, taps, padlens)
+        out = buf[p0:p0 + rows.shape[1]].T
     else:
-        _launch(buf, lengths, coefs, taps, padlens, p0)
-    out = buf[p0:p0 + rows.shape[1]].T
+        out = _launch(rows, lengths, coefs, taps, padlens, p0)
     valid = (torch.arange(rows.shape[1], device=rows.device)[None, :]
              < torch.tensor(lengths, device=rows.device)[:, None])
     return torch.where(valid, out, rows.detach()).contiguous()

@@ -102,3 +102,83 @@ def test_wrapper_checks_its_inputs():
     with pytest.raises(TypeError, match="float32"):
         tdtw.dtw_alignment_batched(costs.double(),
                                    torch.zeros((2, 2), dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# The kernel's formulation: direction codes and their walk
+# ---------------------------------------------------------------------------
+
+
+def _codes_walk(costs, ends):
+    codes = tdtw.dtw_directions_plain(torch.from_numpy(costs))
+    return tdtw.dtw_backtrace_codes_plain(codes, torch.from_numpy(ends))
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "edge_ends"])
+def test_direction_codes_walk_identical_to_plain_and_jax(kind):
+    """The kernel's 2-bit codes (the backtrace's comparisons in its order,
+    taken on the values that enter the cell's min) and the walk that reads
+    one code a step give the plain version's and JAX's alignments, ties and
+    short, empty and one-row or one-column ends included."""
+    rng = np.random.default_rng({"random": 1, "ties": 2, "edge_ends": 3}[kind])
+    shape = (6, 37, 29)
+    costs = (rng.integers(0, 3, shape) if kind == "ties"
+             else rng.random(shape)).astype(np.float32)
+    ends = np.stack([rng.integers(10, 37, 6), rng.integers(10, 29, 6)],
+                    1).astype(np.int32)
+    if kind == "edge_ends":
+        ends[:] = [[36, 28], [-1, -1], [0, 20], [25, 0], [1, 1], [36, 3]]
+    got, steps = _codes_walk(costs, ends)
+    want = tdtw.dtw_alignment_plain(torch.from_numpy(costs),
+                                    torch.from_numpy(ends))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    for s, (ei, ej) in enumerate(ends):
+        jax_ends = (int(ei), int(ej))
+        np.testing.assert_array_equal(
+            got[s].numpy(), np.asarray(jdtw.dtw_alignment(
+                jnp.asarray(costs[s]), end=jax_ends)), err_msg=f"slot {s}")
+        # Each step lowers i, j or both by one until one of them is 0; none
+        # from an empty or border end.
+        if ei <= 0 or ej <= 0:
+            assert steps[s] == 0
+        else:
+            assert min(ei, ej) <= steps[s] <= ei + ej
+
+
+def test_direction_codes_are_the_first_minimal_predecessor():
+    costs = np.random.default_rng(4).integers(0, 2, (1, 12, 10)).astype(
+        np.float32)
+    codes = tdtw.dtw_directions_plain(torch.from_numpy(costs))[0].numpy()
+    dtw = tdtw.dtw_matrix_np(costs[0])
+    for i in range(1, 12):
+        for j in range(1, 10):
+            cand = [dtw[i - 1, j], dtw[i, j - 1], dtw[i - 1, j - 1]]
+            assert codes[i, j] == int(np.argmin(cand)), (i, j)
+    assert not codes[0].any() and not codes[:, 0].any()
+
+
+@pytest.mark.parametrize("t1,t2,shared,threads", [
+    (259, 259, True, 288),      # the mixed corpus's slots
+    (500, 600, True, 512),      # a long utterance
+    (1000, 1000, False, 1024),  # codes past shared memory
+    (2100, 300, False, 1024),   # rows in strips of 1,024
+    (4500, 64, True, 1024),     # five strips, narrow codes
+    (1, 300, True, 32), (300, 1, True, 320), (400, 150, True, 416)])
+def test_dtw_plan(t1, t2, shared, threads):
+    """Shared or global direction codes, one thread a row up to 1,024 (then
+    strips), and never more than a block's 232,448 bytes of shared
+    memory."""
+    plan = tdtw.plan_dtw(t1, t2)
+    assert plan.shared_codes is shared and plan.threads == threads
+    assert plan.words_per_row * 16 >= t2 > (plan.words_per_row - 1) * 16
+    assert plan.smem_bytes <= 232_448
+    codes_bytes = 4 * t1 * plan.words_per_row
+    if shared:
+        assert plan.smem_bytes >= codes_bytes
+    else:
+        assert plan.smem_bytes + codes_bytes > 232_448
+
+
+def test_dtw_plan_refuses_a_boundary_row_past_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        tdtw.plan_dtw(5000, 60_000)

@@ -366,3 +366,46 @@ def test_align_speech_units_and_mfccs_matches_jax():
         want = JA.align_speech_units_and_mfccs(units, mfccs)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.numpy(), w)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's launch: its row-major buffer and its variant
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("length,p0,resident,chunks", [
+    (15_000, 12, True, 1),    # an utterance and its neighbours, the cascade
+    (4_000, 15, True, 1),     # the Hilbert envelope's low-pass at 800 Hz
+    (4_000, 12, True, 1),     # the widest of the 512 mixed rows
+    (29_030, 12, True, 1),    # the widest row that stays resident
+    (29_031, 12, False, 15),  # one sample more: streamed
+    (40_000, 12, False, 20)])  # three long utterances
+def test_filtfilt_plan(length, p0, resident, chunks):
+    """Resident while the padded row (rounded up to even) and its barrier
+    fit in a block's 232,448 bytes of shared memory, else streamed through
+    the ring; never more shared memory than a block may hold."""
+    from ste_gan_torch.ops import iir
+
+    plan = iir.plan_filtfilt(length, p0)
+    assert plan.resident is resident and plan.chunks == chunks
+    assert plan.width % 2 == 0 and plan.width - 1 <= length + 2 * p0 <= plan.width
+    assert plan.smem_bytes <= iir.SMEM_LIMIT == 232_448
+    if resident:
+        assert plan.smem_bytes == 16 + 8 * plan.width
+    else:
+        assert 16 + 8 * plan.width > iir.SMEM_LIMIT
+        assert (chunks - 1) * iir.CHUNK < plan.width <= chunks * iir.CHUNK
+
+
+@pytest.mark.parametrize("width_extra", [0, 1])
+def test_kernel_buffer_holds_each_row_at_p0(width_extra):
+    from ste_gan_torch.ops import iir
+
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(3, 21)))
+    p0 = 9
+    plan = iir.plan_filtfilt(21 + width_extra, p0)
+    buf = iir.kernel_buffer(x, p0, plan.width)
+    assert buf.shape == (3, plan.width) and buf.dtype == torch.float64
+    assert buf.is_contiguous() and plan.width % 2 == 0
+    assert torch.equal(buf[:, p0:p0 + 21], x)
+    assert not buf[:, :p0].any() and not buf[:, p0 + 21:].any()
