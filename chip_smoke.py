@@ -14,14 +14,18 @@ Phases, each fatal on failure:
 2. each kernel, through the wrapper the main path calls (``conv_fwd``,
    ``conv_dx``, ``conv_dw``, ``fused_adamw_``), against its plain PyTorch
    version on the card, at the shapes of the main path: the grouped conv's
-   forward (bf16: ``conv_fwd_bf16_kernel``), dX and dW at all six (layer,
+   forward and dX (bf16: ``conv_fwd_wgmma_kernel``,
+   ``conv_dx_wgmma_kernel``, each after ``conv_weight_layout_kernel``) and
+   dW at all six (layer,
    scale) geometries of the small scale discriminators on the paired
    2B = 64 batch, in f32 (TF32 off) and bf16; forward, dX and dW also at
    the edge geometries of ``tests/test_torch_grouped_conv.py`` (strides
    1/2/4, groups 1-16, down to 2 input and 4 output channels per group, 128
    output channels per group, odd lengths), one with K < stride and the
    full scale discriminators' five grouped layers (K 41, strides 1-4,
-   groups 4-16, up to 1024 channels) at three scales, in both types; two bf16 dW calls must agree bit for bit; AdamW over
+   groups 4-16, up to 1024 channels) at three scales, in both types; two
+   bf16 calls of each of forward, dX and dW must agree bit for bit, and the
+   layout kernel must equal ``_layout_weights``; AdamW over
    generator- and discriminator-size parameter sets for 3 steps. Kernel,
    plain and library times come from CUDA events; the bound is the larger of
    bytes over 3.35 TB/s and operations over the peak rate for the operand
@@ -391,11 +395,22 @@ def check_grouped_conv(torch, gc, F):
                           + (f"kernel {row['ms']:.4f} ms plain "
                              f"{row['plain_ms']:.4f} ms library "
                              f"{row['library_ms']:.4f} ms bound "
-                             f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+                             f"{row['bound_ms']:.4f} ms ({row['bound_by']}); "
+                             f"{100 * row['bound_ms'] / row['ms']:.1f} % of "
+                             f"the bound, kernel/library "
+                             f"{row['ms'] / row['library_ms']:.3f}"
                              if "ms" in row else ""), flush=True)
                     if not ok:
                         raise SystemExit(f"{name} disagrees with its plain "
                                          f"version: {row}")
+    for name, agg in summary.items():
+        agg["bound_share"] = agg["bound_ms"] / agg["ms"]
+        agg["kernel_over_library"] = agg["ms"] / agg["library_ms"]
+        print(f"[conv] {name} bf16, sum of the six geometries: kernel "
+              f"{agg['ms']:.4f} ms, bound {agg['bound_ms']:.4f} ms "
+              f"({agg['bound_by']}), {100 * agg['bound_share']:.1f} % of the "
+              f"bound, library {agg['library_ms']:.4f} ms, kernel/library "
+              f"{agg['kernel_over_library']:.3f}", flush=True)
     return rows, summary
 
 
@@ -442,8 +457,10 @@ def hold_conv(torch, gc, geometries, gen, label):
 def check_conv_edges(torch, gc):
     """Forward, dX and dW against their plain versions at the edge
     geometries and at the full scale discriminators' grouped layers (three
-    scales), f32 and bf16, same tolerances; then two bf16 dW calls at
-    layer 1, scale 0 must be bitwise equal."""
+    scales), f32 and bf16, same tolerances; then two bf16 calls of each at
+    layer 1, scale 0 must be bitwise equal, and the weight layout kernel
+    (``grouped_conv1d_weight_layout``) must equal ``_layout_weights`` for
+    the forward and dX at both main-path layers."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     full = [(b, t >> scale, *rest) for b, t, *rest in FULL_SCALE_GEOMETRIES
             for scale in range(3)]
@@ -454,13 +471,42 @@ def check_conv_edges(torch, gc):
                     generator=gen).bfloat16()
     dy = torch.randn(PAIRED_BATCH, cout, gc.out_length(CHUNK, k, s, pad, pad),
                      device="cuda", generator=gen).bfloat16()
-    same = torch.equal(gc.conv_dw(x, dy, k, s, pad, pad, g),
-                       gc.conv_dw(x, dy, k, s, pad, pad, g))
-    print(f"[edge] grouped_conv_dw bf16 layer1 scale0 twice: bitwise equal "
-          f"{same}", flush=True)
-    if not same:
-        raise SystemExit("conv_dw is not deterministic")
-    return {"rows": rows, "dw_bitwise_equal": same}
+    w = (torch.randn(cout, cin // g, k, device="cuda", generator=gen)
+         / (k * cin / g) ** 0.5).bfloat16()
+    twice = {"grouped_conv_fwd": lambda: gc.conv_fwd(x, w, s, pad, pad, g),
+             "grouped_conv_dx": lambda: gc.conv_dx(dy, w, s, pad, CHUNK, g),
+             "grouped_conv_dw": lambda: gc.conv_dw(x, dy, k, s, pad, pad, g)}
+    bitwise = {}
+    for name, fn in twice.items():
+        bitwise[name] = torch.equal(fn(), fn())
+        print(f"[edge] {name} bf16 layer1 scale0 twice: bitwise equal "
+              f"{bitwise[name]}", flush=True)
+    if not all(bitwise.values()):
+        raise SystemExit(f"a grouped conv kernel is not deterministic: "
+                         f"{bitwise}")
+    from ste_gan_torch.ops import build
+    layouts = {}
+    for layer, (cin, cout, k, s, g, pad) in enumerate(GROUPED_LAYERS, 1):
+        t_in = CHUNK // layer
+        t_out = gc.out_length(t_in, k, s, pad, pad)
+        w = torch.randn(cout, cin // g, k, device="cuda",
+                        generator=gen).bfloat16()
+        for kind in ("fwd", "dx"):
+            plan = gc._plan_conv(kind == "dx", PAIRED_BATCH, cin, cout, k, s,
+                                 pad, t_in, t_out, g)
+            wp = torch.empty(plan.w_numel, device="cuda",
+                             dtype=torch.bfloat16)
+            build.check(build.load("grouped_conv").grouped_conv1d_weight_layout(
+                w.data_ptr(), wp.data_ptr(), plan.args, plan.nt_w,
+                torch.cuda.current_stream().cuda_stream),
+                "grouped_conv1d_weight_layout")
+            same = torch.equal(wp, gc._layout_weights(w, plan).reshape(-1))
+            layouts[f"{kind}_layer{layer}"] = same
+            print(f"[edge] conv_weight_layout_kernel {kind} layer{layer}: "
+                  f"equal to _layout_weights {same}", flush=True)
+    if not all(layouts.values()):
+        raise SystemExit(f"the weight layout kernel disagrees: {layouts}")
+    return {"rows": rows, "bitwise_equal": bitwise, "layouts_equal": layouts}
 
 
 def adamw_row(torch, fa, shapes, gen, lr, b1, b2, weight_decay):
@@ -4481,8 +4527,10 @@ def main() -> int:
                 "grouped_conv_dw": "ste_gan_tpu/ops/pallas_conv.py:158",
                 "fused_adamw": "ste_gan_tpu/ops/fused_adamw.py:49"}
     #: The CUDA kernels each wrapper launches on the main path (bf16).
-    cuda_kernels = {"grouped_conv_fwd": "conv_fwd_bf16_kernel",
-                    "grouped_conv_dx": "conv_dx_kernel",
+    cuda_kernels = {"grouped_conv_fwd": "conv_weight_layout_kernel + "
+                                        "conv_fwd_wgmma_kernel",
+                    "grouped_conv_dx": "conv_weight_layout_kernel + "
+                                       "conv_dx_wgmma_kernel",
                     "grouped_conv_dw": "conv_dw_partial_kernel + "
                                        "conv_dw_reduce_kernel",
                     "fused_adamw": "adamw_multi_tensor_kernel"}

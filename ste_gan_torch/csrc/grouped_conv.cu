@@ -2,26 +2,29 @@
 // and weight gradient (dW), CUDA C++ behind a plain C interface.
 //
 // Replaces the Pallas TPU kernels of ste_gan_tpu/ops/pallas_conv.py:
-//   * conv_fwd_bf16_kernel <- _fwd_kernel (:147-155) via _run_fwd (:189-208),
-//                           bf16: an implicit GEMM per group.
-//   * conv_fwd_kernel    <- the same, f32, on the CUDA cores. It also
+//   * conv_fwd_wgmma_kernel <- _fwd_kernel (:147-155) via _run_fwd
+//                           (:189-208), bf16;
+//   * conv_dx_wgmma_kernel  <- its second use, the dX pass of
+//                           _conv_core_bwd (:264-305), bf16. Both run one
+//                           wgmma mainloop (warp-specialised, weights
+//                           resident per group, persistent CTAs) after the
+//                           one-launch conv_weight_layout_kernel.
+//   * conv_fwd_kernel    <- _fwd_kernel in f32, on the CUDA cores. It also
 //                           computes the f32 dX the way _conv_core_bwd
 //                           (:282-304) does: the forward at stride 1 on
 //                           stride-dilated dy with tap-flipped,
 //                           in/out-transposed weights.
-//   * conv_dx_kernel     <- the dX pass of _conv_core_bwd (:282-304), bf16.
 //   * conv_dw_partial_kernel + conv_dw_reduce_kernel
 //                        <- _dw_kernel (:158-174) via _run_dw (:211-234),
-//                           bf16; conv_dw_partial_f32_kernel is the f32
-//                           route, on the CUDA cores.
+//                           bf16, mma.sync.m16n8k16 with ldmatrix;
+//                           conv_dw_partial_f32_kernel is the f32 route, on
+//                           the CUDA cores.
 //
 // Layout is PyTorch's: x [B, Cin, Tin], y and dy [B, Cout, Tout]; output
 // channels form G consecutive blocks of og = Cout/G, input channels blocks
 // of cg = Cin/G. dW is written as [Cout, cg, K]. Every sum is accumulated in
-// f32 and the result is written in the operand type. The bf16 kernels run
-// on the tensor cores (mma.sync.m16n8k16, bf16 in, f32 accumulate, operands
-// loaded from shared memory with ldmatrix); the f32 kernels stay exact f32
-// on the CUDA cores (no TF32).
+// f32 and the result is written in the operand type; no sum uses atomics.
+// The f32 kernels stay exact f32 on the CUDA cores (no TF32).
 //
 // What bounds them: at the scale discriminators' shapes (K 37, cg 16-32,
 // og 32-64) each output element takes ~2.4k FLOP of a few bytes of input, so
@@ -36,7 +39,7 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 256;  // 8 warps in every kernel here
+constexpr int kThreads = 256;  // 8 warps in the f32 and dW kernels
 constexpr int kWarps = kThreads / 32;
 constexpr int kTM = 4;  // time rows per thread (f32 forward)
 constexpr int kTN = 4;  // output channels per thread (f32 forward)
@@ -48,7 +51,7 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core and async-copy primitives (sm_80+ PTX, run on sm_90a)
+// mma.sync primitives of the dW kernel (sm_80+ PTX, run on sm_90a)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -80,19 +83,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)),
-               "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most one committed group is still in flight.
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 __device__ __forceinline__ uint32_t pack2(unsigned short lo, unsigned short hi) {
@@ -196,341 +186,648 @@ conv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// Forward in bf16: an implicit GEMM per group on the tensor cores.
+// Forward and dX in bf16 (Hopper): one implicit-GEMM mainloop, wgmma on a
+// channel-last window, weights resident per (group, channel tile).
 //
-// y[b, g*og + o, u] = sum_{c, j} x[b, g*cg + c, u*s + j - pad_l] * w[g*og + o, c, j]:
-// per group a GEMM of M = output time rows, N = og, reduction over
-// (tap, input channel). Out-of-range x reads as zero.
+// conv_fwd_wgmma_kernel replaces pallas_conv.py:147 _fwd_kernel through
+// _run_fwd (:189-208); conv_dx_wgmma_kernel replaces its second use, the
+// data gradient of _conv_core_bwd (:264-305).
 //
-// What bounds it: arithmetic (104 GFLOP per paired pass of the main path;
-// each staged x element feeds ~og*K/s MACs), so the design feeds the tensor
-// cores from shared memory, as dX does:
-//   * Block = (time tile of BM outputs; group x tile of OB output channels;
-//     batch row). Its x window, t = u0*s - pad_l + p for p < s*V, is staged
-//     once per chunk of CC input channels, channel-last and split by phase
-//     ([p mod s][p div s][c], rows padded by 8), transposing on the way in.
-//     Tap j of output row u0 + i is then row i + j div s of plane j mod s:
-//     consecutive outputs are consecutive 16-byte-aligned rows, and the 8
-//     rows of an ldmatrix fall in distinct banks.
-//   * Weights are permuted once per call by the wrapper, zero-padded, to
-//     [G, n_otiles, K, OB, cg_pad] (c contiguous) and streamed through a
-//     two-stage cp.async ring, mt taps per stage, so each weight element is
-//     staged once per block.
-//   * Warps tile BM x OB with warp tiles of 32x32 (64x16 at OB 16): per tap
-//     and 16-deep step of channels, a warp loads MTM A fragments and NT/2 B
-//     fragments with ldmatrix.x4 and issues MTM*NT mma.sync. A warp whose
-//     rows all lie past Tout skips the products.
-//   * The f32 accumulators leave through shared memory as an [o][u] tile, so
-//     that the stores to y are contiguous in time.
-// Channels past cg and og are zeros in shared memory; the ragged last time
-// tile and output channels past og are masked at the store.
+// Both are, per (group, channel tile), a GEMM of M = time rows, N = columns
+// and a reduction over (tap, channel). The forward:
+//   y[b, g*og + o, u] = sum_{j, c} x[b, g*cg + c, u*s + j - pad_l] * w[g*og + o, c, j];
+// tap j of output row u0 + i reads the channel-last x window at plane
+// j mod s, row i + j div s. dX is the same loop at stride 1 over dy, with
+// the s input phases fused into N:
+//   dx[b, g*cg + c, s*q + r] = sum_{e, o} dy[b, g*og + o, q + e] * w[g*og + o, c, r + P0 - s*e']
+// where e = e_min + e' runs over the dy offsets of every phase (phase r's
+// tap j0_r + s*m lies at offset d_r - m, ops/grouped_conv.py phases()), and
+// P0 = pad_l - s*e_min; the weight is zero where that tap lies outside
+// [0, K). A reduction row is (offset e', output channel o), a column
+// co*s + r (input channel co, phase r): N = s*cg, 64 at layer 1 and 32 at
+// layer 2 of the main path, and the phases share one dy window. The zero slots cost
+// 1 - K / (s*E) of the products (E offsets): 1 in 38 on the main path (K
+// 37, s 2, E 19), 1 in 42 at the full scale discriminators' K 41, s 2, 3
+// in 44 at K 41, s 4, and 5 in 8 at K 3, s 4 (K < s).
+//
+// What bounds them: operations, 104.3 GFLOP per six-geometry pass of the
+// main path (0.105 ms at 989 TFLOP/s) against ~100 MB of operands. The
+// smem-operand ceiling: each wgmma m64nNk16 reads A (64 rows x 16
+// channels, 2 KB) and B (N x 16) from shared memory; at N 32 with one k16
+// step per tap (layer 2, cg 16) the 3 KB take about as many cycles at 128
+// B per clock as its 16 cycles of products, so layer 2 is held near two
+// thirds of peak.
+//
+// What the design does about what held the mma.sync kernels back:
+//   1. Weights restaged per block: persistent CTAs (one per SM) walk a
+//      balanced contiguous range of tiles in (group, channel tile)-major
+//      order. The wrapper's one-launch conv_weight_layout_kernel writes each
+//      (group, channel tile) slab in its shared-memory layout, and one
+//      thread loads it with cp.async.bulk against an mbarrier only when the
+//      next tile is of another slab (one to three loads per CTA and call).
+//      Where a slab and the window ring do not fit in 227 KB (the full
+//      scale discriminators' K 41, cg 64 and s 4, cg 32 layers) the same
+//      kernel streams it per tile through a two-slot ring of tap chunks.
+//   2. Synchronous window staging: warp specialisation. A CTA runs two
+//      pipes, each one consumer warpgroup, two window warps that stage the
+//      next tile's window into the other slot of a two-slot ring, and one
+//      weight thread; completion travels on
+//      mbarriers, never __syncthreads. The window warps transpose x or dy
+//      ([B, C, T]) to channel-last by registers: 16-byte loads of 8 time
+//      steps of 8 channels, regrouped with byte permutes into 8 rows of 8
+//      channels, two such units in flight per thread (lengths that are not
+//      a multiple of 8 take 2-byte loads, eight per row). A bulk load of
+//      the time-major box would need a staging buffer that layer 1's
+//      resident slab leaves no room for, and rows of a 16-byte multiple,
+//      which odd lengths lack. The consumer pipes take turns to issue their
+//      products (pipe 0, pipe 1, pipe 0, ...), so that one pipe's epilogue
+//      runs under the other's products; the kernel starts as a programmatic
+//      dependent of the layout kernel, and only its weight thread waits
+//      for that kernel's end.
+//   3. ldmatrix + mma.sync: wgmma.mma_async m64nNk16 (N 16, 32 or 64) from
+//      shared-memory descriptors; a tile's products are all issued before
+//      one commit_group and wait_group, k16 steps outermost so that each
+//      tap's product follows the last without a loop between, and each
+//      tap's issue overlaps the running ones (when streamed, one chunk's
+//      wait overlaps the next chunk's issue). The layout has no swizzle, in 16-byte core-matrix
+//      rows: the window is [plane][c/8][row][8] and a weight tap
+//      [c/8][n][8], so an 8 x 8 core matrix is 128 contiguous bytes (no
+//      bank conflict) and a tap's one-row shift is a 16-byte move of the
+//      descriptor's start address, which a swizzled layout could not take
+//      without its base-offset field. LBO = the next 8 channels (rows x 16
+//      bytes), SBO = the next 8 rows (128 bytes).
+//   4. Fixed time tiles: 64 or 128 rows per consumer (128 = two m64
+//      products on one B tile), picked from the row count; the pipes take a
+//      CTA's tiles in turn, so they differ by at most one tile and no
+//      warpgroup idles at T_out 128.
+// The epilogue converts to bf16, writes an [o][u] (forward) or [c][t] (dX,
+// two phases of a channel as one 4-byte pair) tile into the window slot
+// just consumed and stores 16-byte rows contiguous in time, while the other
+// pipe's products run. Timed on an H100 with parts switched off, the rest of
+// the gap to the bound lies in the epilogue and in a call's fixed cost (the
+// layout kernel, the first slab load), not in the products.
 // ---------------------------------------------------------------------------
 
-struct FwdParams {  // field order = _FWD_FIELDS in ops/grouped_conv.py
-  int B, Cin, Cout, Tin, Tout, K, stride, pad_l, G;
-  int cg, og, n_otiles, cg_pad, n_cchunks;
-  int bm, V, mt, n_mchunks, so_stride;
+struct ConvParams {  // field order = _CONV_FIELDS in ops/grouped_conv.py
+  int B, C_src, T_src, C_dst, T_dst, G;  // source x or dy, destination y or dx
+  int CR, C8, S, KE, t_off;   // reduction channels per group, 8-channel groups
+                              // (padded to 16), window stride, taps, window
+                              // time offset
+  int R, CO, CO_total, n_nt;  // phases in N, channels per channel tile, per
+                              // group, channel tiles per group
+  int mt, n_tt, V, tiles_per_slab, n_tiles;  // m64 products per tile, time
+                                             // tiles, window rows per plane
+  int resident, ck, n_chunks;                // slab resident, or streamed in
+                                             // chunks of ck taps
+  int slot_bytes, tap_bytes, w_off, win_off, out_ld;
+  int K, stride, P0, dx;  // the weight layout
+  int vec, s_shift;       // 16-byte window loads; log2 S when S is a power of 2
 };
 
-// Warp tiling of a forward block with OB output channels; BM is _FWD_BM in
-// ops/grouped_conv.py.
-template <int OB>
-struct FwdTile {
-  static constexpr int NT = OB == 16 ? 2 : 4;   // n8 tiles per warp
-  static constexpr int MTM = OB == 16 ? 4 : 2;  // m16 tiles per warp
-  static constexpr int WN = NT * 8, WM = MTM * 16;
-  static constexpr int WARPS_N = OB / WN;
-  static constexpr int BM = (kWarps / WARPS_N) * WM;
-};
+constexpr int kConvThreads = 448;  // warps 0-7: consumers, 8-11: windows, 12-13: weights
+constexpr int kWinThreads = 64;    // window threads per pipe
+constexpr int kSlots = 2;          // window slots per pipe
+constexpr uint32_t kBulkPiece = 32768;
 
-template <int OB, int CC>
-__global__ void __launch_bounds__(kThreads, 2)
-conv_fwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
-                     bf16* __restrict__ y, const FwdParams p) {
-  using Tile = FwdTile<OB>;
-  constexpr int MTM = Tile::MTM, NT = Tile::NT, WM = Tile::WM, WN = Tile::WN;
-  constexpr int BM = Tile::BM, CCP = CC + 8, PIECES = CC / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* win = reinterpret_cast<bf16*>(smem_raw);      // [s][V][CCP]
-  bf16* ring = win + p.stride * p.V * CCP;             // [2][mt][OB][CCP]
-  float* sout = reinterpret_cast<float*>(smem_raw);   // [OB][so_stride], at the end
-  const int s = p.stride;
-  const int stage = p.mt * OB * CCP;
-  const int g = blockIdx.y / p.n_otiles, ot = blockIdx.y - g * p.n_otiles;
-  const int b = blockIdx.z, u0 = blockIdx.x * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp / Tile::WARPS_N, wn = warp - wm * Tile::WARPS_N;
-  const bool active = u0 + wm * WM < p.Tout;
-  const int t_base = u0 * s - p.pad_l;
-  const unsigned short* xb = reinterpret_cast<const unsigned short*>(x) +
-                             ((size_t)b * p.Cin + (size_t)g * p.cg) * p.Tin;
-  const bf16* wg = wp + (size_t)blockIdx.y * p.K * OB * p.cg_pad;
-  const int n_chunks = p.n_cchunks * p.n_mchunks;
+// ---- mbarriers, bulk copies, proxy fences, wgmma (sm_90a PTX) ----
 
-  // Weight chunk ch (c-chunk ch / n_mchunks, taps j0..j0+mt) into ring slot
-  // ch & 1; taps past K are never read.
-  auto stage_weights = [&](int ch) {
-    const int cc0 = (ch / p.n_mchunks) * CC, j0 = (ch % p.n_mchunks) * p.mt;
-    bf16* dst = ring + (ch & 1) * stage;
-    for (int i = threadIdx.x; i < p.mt * OB * PIECES; i += kThreads) {
-      const int row = i / PIECES, piece = i - row * PIECES;  // row = tap * OB + o
-      if (j0 + row / OB < p.K)
-        cp_async16(dst + row * CCP + piece * 8,
-                   wg + ((size_t)j0 * OB + row) * p.cg_pad + cc0 + piece * 8);
-    }
-  };
-  // x at t_base + pv of input channels cc0..cc0+CC, channel-last, into row
-  // pv div s of plane pv mod s; zeros outside [0, Tin) and past cg.
-  auto stage_window = [&](int cc0) {
-    for (int pv = threadIdx.x; pv < s * p.V; pv += kThreads) {
-      const int t = t_base + pv;
-      const bool in = t >= 0 && t < p.Tin;
-      bf16* dst = win + ((pv % s) * p.V + pv / s) * CCP;
-#pragma unroll
-      for (int c8 = 0; c8 < PIECES; ++c8)
-        store8(dst + c8 * 8, xb + (size_t)(cc0 + c8 * 8) * p.Tin + t, p.Tin,
-               in ? p.cg - (cc0 + c8 * 8) : 0);
-    }
-  };
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
 
-  float acc[MTM][NT][4];
-#pragma unroll
-  for (int i = 0; i < MTM; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
 
-  stage_weights(0);
-  cp_async_commit();
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    const int mc = ch % p.n_mchunks;
-    // The previous chunk's closing barrier has freed the window.
-    if (mc == 0) stage_window((ch / p.n_mchunks) * CC);
-    if (ch + 1 < n_chunks) stage_weights(ch + 1);
-    cp_async_commit();
-    cp_async_wait1();  // chunk ch has landed
-    __syncthreads();
-    if (active) {
-      const bf16* ws = ring + (ch & 1) * stage;
-      const int j0 = mc * p.mt, n_taps = min(p.mt, p.K - j0);
-      for (int jj = 0; jj < n_taps; ++jj) {
-        const int j = j0 + jj;
-        const bf16* arow =
-            win + ((j % s) * p.V + wm * WM + j / s + (lane & 15)) * CCP + (lane >> 4) * 8;
-        const bf16* brow =
-            ws + (jj * OB + wn * WN + (lane >> 4) * 8 + (lane & 7)) * CCP +
-            ((lane >> 3) & 1) * 8;
-#pragma unroll
-        for (int ks = 0; ks < CC / 16; ++ks) {
-          uint32_t a[MTM][4], bb[NT][2];
-#pragma unroll
-          for (int i = 0; i < MTM; ++i)
-            ldsm_x4(arow + i * 16 * CCP + ks * 16, a[i][0], a[i][1], a[i][2], a[i][3]);
-#pragma unroll
-          for (int jn = 0; jn < NT / 2; ++jn)
-            ldsm_x4(brow + jn * 16 * CCP + ks * 16, bb[2 * jn][0], bb[2 * jn][1],
-                    bb[2 * jn + 1][0], bb[2 * jn + 1][1]);
-#pragma unroll
-          for (int i = 0; i < MTM; ++i)
-#pragma unroll
-            for (int jn = 0; jn < NT; ++jn) mma_bf16(acc[i][jn], a[i], bb[jn][0], bb[jn][1]);
-        }
-      }
-    }
-    __syncthreads();  // ring slot ch & 1 (and, at a c-chunk's end, the window) is free
-  }
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
 
-  // The output tile reuses the window and ring: every copy into them has
-  // landed and every read has passed the last barrier.
-  if (active) {
-#pragma unroll
-    for (int i = 0; i < MTM; ++i)
-#pragma unroll
-      for (int jn = 0; jn < NT; ++jn)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int u = wm * WM + i * 16 + (lane >> 2) + (e >> 1) * 8;
-          const int o = wn * WN + jn * 8 + 2 * (lane & 3) + (e & 1);
-          sout[o * p.so_stride + u] = acc[i][jn][e];
-        }
-  }
-  __syncthreads();
-  const int o_lim = min(OB, p.og - ot * OB), u_lim = min(BM, p.Tout - u0);
-  bf16* yb = y + ((size_t)b * p.Cout + (size_t)g * p.og + ot * OB) * p.Tout + u0;
-  for (int i = threadIdx.x; i < o_lim * BM; i += kThreads) {
-    const int o = i / BM, u = i - o * BM;
-    if (u < u_lim) yb[(size_t)o * p.Tout + u] = __float2bfloat16(sout[o * p.so_stride + u]);
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// global -> shared in pieces, completing `bytes` (a multiple of 16) on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  for (uint32_t off = 0; off < bytes; off += kBulkPiece) {
+    const uint32_t n = bytes - off < kBulkPiece ? bytes - off : kBulkPiece;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(static_cast<char*>(dst) + off)),
+        "l"(static_cast<const char*>(src) + off), "r"(n), "r"(smem_addr(bar))
+        : "memory");
   }
 }
 
-// ---------------------------------------------------------------------------
-// dX in bf16: a polyphase transposed conv on the tensor cores.
-//
-// dx[b, c, t] = sum_{o, j : t = u*s + j - pad_l} dy[b, o, u] * w[o, c, j].
-// Split t by phase r = t mod s, t = s*q + r. Phase r receives only the taps
-// j = j0_r + s*m (j0_r = (r + pad_l) mod s, m < n_r), at u = q + d_r - m
-// (d_r = (r + pad_l) div s): a stride-1 correlation of dy with n_r taps and
-// per group a GEMM of M = q rows, N = cg, reduction og x n_r. No dilated dy
-// is built and no zero is multiplied (the forward-on-dilated-dy route does
-// half its work on zeros at stride 2).
-//
-// What bounds it: arithmetic (104 GFLOP per paired pass of the main path on
-// a few MB), so the design feeds the tensor cores from shared memory:
-//   * Block = (time tile of s*bq outputs, all phases; group x tile of NB
-//     input channels; batch row). Its dy window is staged once per chunk of
-//     OC output channels, channel-last ([u][o], rows padded by 8 so that the
-//     8 row addresses of an ldmatrix fall in distinct banks), transposing on
-//     the way in. A tap is then a row offset, and every row address stays
-//     16-byte aligned, which a time-contiguous [o][u] tile would not be.
-//   * Weights are permuted once per call by the wrapper, zero-padded, to
-//     [G, n_ctiles, s, nmax, NB, og_pad] (per phase its taps in order), and
-//     streamed through a two-stage cp.async ring, mt taps of every phase per
-//     stage, so each weight element is staged once per block.
-//   * Warp = one (phase, WM rows) unit with all NB columns: per 16-deep step
-//     it loads MTM A fragments and NT/2 B fragments with ldmatrix.x4 and
-//     issues MTM*NT mma.sync (warp tile 32x32 or 64x16).
-//   * The f32 accumulators leave through shared memory as a [c][t] tile, so
-//     that the stores to dx are contiguous in time.
-// A phase with no taps (K < s) writes zeros; trailing inputs that a strided
-// conv drops read only dy rows past Tout, which stage as zeros.
-// ---------------------------------------------------------------------------
+// Makes this thread's shared-memory stores visible to wgmma (async proxy).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
-struct DxParams {  // field order = _DX_FIELDS in ops/grouped_conv.py
-  int B, Cin, Cout, Tin, Tout, K, stride, pad_l, G;
-  int cg, og, n_ctiles, og_pad, n_ochunks;
-  int bq, upp, rounds, nmax, dmin, win_rows;
-  int mt, n_mchunks, out_off, so_stride;
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A K-major shared-memory matrix without swizzle: start, LBO (the next 8
+// K-elements) and SBO (the next 8 rows), all in bytes.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x N] += A[64 x 16] * B[N x 16]^T, bf16 operands from shared memory, f32
+// accumulators: per 8 columns nb, d[4nb + e] is row 16*warp + lane/4 +
+// 8*(e/2), column 8nb + 2*(lane%4) + e%2.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da, uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<16>(float (&d)[8], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+struct ConvTile {
+  int slab, g, nt, b, tt;
 };
 
-template <int MTM, int NT, int OC>
-__global__ void __launch_bounds__(kThreads, 2)
-conv_dx_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ wph,
-               bf16* __restrict__ dx, const DxParams p) {
-  constexpr int WM = MTM * 16, NB = NT * 8, OCP = OC + 8, PIECES = OC / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* win = reinterpret_cast<bf16*>(smem_raw);              // [win_rows][OCP]
-  bf16* ring = win + p.win_rows * OCP;                         // [2][s][mt][NB][OCP]
-  float* sout = reinterpret_cast<float*>(smem_raw + p.out_off);  // [NB][so_stride]
-  const int s = p.stride;
-  const int stage = s * p.mt * NB * OCP;
-  const int g = blockIdx.y / p.n_ctiles, ct = blockIdx.y - g * p.n_ctiles;
-  const int b = blockIdx.z, q0 = blockIdx.x * p.bq;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int u_lo = q0 + p.dmin - (p.nmax - 1);
-  const unsigned short* dyb = reinterpret_cast<const unsigned short*>(dy) +
-                              ((size_t)b * p.Cout + (size_t)g * p.og) * p.Tout;
-  const bf16* wg = wph + (size_t)blockIdx.y * s * p.nmax * NB * p.og_pad;
-  const int n_chunks = p.n_ochunks * p.n_mchunks;
+// Tile i of a call: slab-major ((group, channel tile), batch row, time tile).
+__device__ __forceinline__ ConvTile conv_tile(const ConvParams& p, int i) {
+  ConvTile t;
+  t.slab = i / p.tiles_per_slab;
+  const int rem = i - t.slab * p.tiles_per_slab;
+  t.b = rem / p.n_tt;
+  t.tt = rem - t.b * p.n_tt;
+  t.g = t.slab / p.n_nt;
+  t.nt = t.slab - t.g * p.n_nt;
+  return t;
+}
 
-  // Weight chunk ch (o-chunk ch / n_mchunks, taps m0..m0+mt of every phase)
-  // into ring slot ch & 1; taps past nmax are never read.
-  auto stage_weights = [&](int ch) {
-    const int oc0 = (ch / p.n_mchunks) * OC, m0 = (ch % p.n_mchunks) * p.mt;
-    bf16* dst = ring + (ch & 1) * stage;
-    for (int i = threadIdx.x; i < s * p.mt * NB * PIECES; i += kThreads) {
-      const int row = i / PIECES, piece = i - row * PIECES;
-      const int n = row % NB, rm = row / NB;
-      const int r = rm / p.mt, m = m0 + rm - r * p.mt;
-      if (m < p.nmax)
-        cp_async16(dst + row * OCP + piece * 8,
-                   wg + ((size_t)(r * p.nmax + m) * NB + n) * p.og_pad + oc0 + piece * 8);
-    }
-  };
-  // dy rows u_lo.. of output channels oc0..oc0+OC, channel-last; zeros
-  // outside [0, Tout) and past og. The pieces of a row are unrolled, so
-  // their loads can be issued ahead of the stores.
-  auto stage_window = [&](int oc0) {
-    for (int row = threadIdx.x; row < p.win_rows; row += kThreads) {
-      const int u = u_lo + row;
-      const bool in = u >= 0 && u < p.Tout;
+// The products of taps [t_begin, t_end) on one window slot: tap t reads
+// window rows starting at row t div S of plane t mod S; its weights are
+// tap t - t_begin of the slab or chunk at w_addr. k16 steps are the outer
+// loop, so that the taps' products run back to back. Operand addresses are
+// counted in 16-byte units, the descriptor's own.
+template <int NT, int MT>
+__device__ __forceinline__ void conv_taps(float (&acc)[MT][NT / 2], const ConvParams& p,
+                                          uint32_t win_addr, uint32_t w_addr,
+                                          int t_begin, int t_end) {
+  const int ksteps = p.C8 >> 1;
+  const uint32_t plane_units = (uint32_t)(p.C8 * p.V), tap_units = (uint32_t)(p.C8 * NT);
+  for (int ks = 0; ks < ksteps; ++ks) {
+    const uint64_t da0 = smem_desc(win_addr, p.V * 16, 128) + (uint32_t)(2 * ks * p.V);
+    uint64_t db = smem_desc(w_addr, NT * 16, 128) + (uint32_t)(2 * ks * NT);
+    int plane = t_begin % p.S;
+    uint32_t a_off = (uint32_t)plane * plane_units + (uint32_t)(t_begin / p.S);
+    for (int t = t_begin; t < t_end; ++t) {
 #pragma unroll
-      for (int c8 = 0; c8 < PIECES; ++c8)
-        store8(win + row * OCP + c8 * 8, dyb + (size_t)(oc0 + c8 * 8) * p.Tout + u,
-               p.Tout, in ? p.og - (oc0 + c8 * 8) : 0);
-    }
-  };
-
-  for (int round = 0; round < p.rounds; ++round) {
-    // This warp's unit: phase r, rows qg*WM.. of the tile (idle if r >= s).
-    const int unit = warp + kWarps * round;
-    const int r = unit / p.upp, qg = unit - r * p.upp;
-    int nr = 0, dr = 0;
-    if (r < s) {
-      const int j0 = (r + p.pad_l) % s;
-      nr = j0 < p.K ? (p.K - j0 + s - 1) / s : 0;
-      dr = (r + p.pad_l) / s;
-    }
-    float acc[MTM][NT][4];
-#pragma unroll
-    for (int i = 0; i < MTM; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-    stage_weights(0);
-    cp_async_commit();
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      const int mc = ch % p.n_mchunks;
-      if (mc == 0) {
-        __syncthreads();  // the previous o-chunk's window is consumed
-        stage_window((ch / p.n_mchunks) * OC);
+      for (int h = 0; h < MT; ++h) wgmma_bf16<NT>(acc[h], da0 + a_off + 64 * h, db);
+      db += tap_units;
+      if (++plane == p.S) {  // the next row of plane 0
+        plane = 0;
+        a_off -= (uint32_t)(p.S - 1) * plane_units - 1;
+      } else {
+        a_off += plane_units;
       }
-      if (ch + 1 < n_chunks) stage_weights(ch + 1);
-      cp_async_commit();
-      cp_async_wait1();  // chunk ch has landed
-      __syncthreads();
-      const bf16* ws = ring + (ch & 1) * stage;
-      const int m0 = mc * p.mt;
-      for (int mm = 0; mm < p.mt; ++mm) {
-        const int m = m0 + mm;
-        if (m >= nr) break;
-        const bf16* arow =
-            win + (qg * WM + dr - p.dmin + p.nmax - 1 - m + (lane & 15)) * OCP +
-            (lane >> 4) * 8;
-        const bf16* brow =
-            ws + ((r * p.mt + mm) * NB + (lane >> 4) * 8 + (lane & 7)) * OCP +
-            ((lane >> 3) & 1) * 8;
-#pragma unroll
-        for (int ks = 0; ks < OC / 16; ++ks) {
-          uint32_t a[MTM][4], bb[NT][2];
-#pragma unroll
-          for (int i = 0; i < MTM; ++i)
-            ldsm_x4(arow + i * 16 * OCP + ks * 16, a[i][0], a[i][1], a[i][2], a[i][3]);
-#pragma unroll
-          for (int j = 0; j < NT / 2; ++j)
-            ldsm_x4(brow + j * 16 * OCP + ks * 16, bb[2 * j][0], bb[2 * j][1],
-                    bb[2 * j + 1][0], bb[2 * j + 1][1]);
-#pragma unroll
-          for (int i = 0; i < MTM; ++i)
-#pragma unroll
-            for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a[i], bb[j][0], bb[j][1]);
-        }
-      }
-      __syncthreads();  // ring slot ch & 1 is free for chunk ch + 2
-    }
-    if (r < s) {
-#pragma unroll
-      for (int i = 0; i < MTM; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int q = qg * WM + i * 16 + (lane >> 2) + (e >> 1) * 8;
-            const int c = j * 8 + 2 * (lane & 3) + (e & 1);
-            sout[c * p.so_stride + q * s + r] = acc[i][j][e];
-          }
     }
   }
+}
+
+template <int NT, int MT>
+__device__ __forceinline__ void conv_wgmma_body(const bf16* __restrict__ src,
+                                                const bf16* __restrict__ wp,
+                                                bf16* __restrict__ dst,
+                                                const ConvParams& p) {
+  extern __shared__ __align__(128) unsigned char conv_smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(conv_smem);
+  uint64_t* win_full = bars;                    // [pipe][slot], 64 window threads
+  uint64_t* win_empty = bars + 2 * kSlots;      // [pipe][slot], 128 consumer threads
+  uint64_t* chk_full = bars + 4 * kSlots;       // [pipe][2], bytes of a chunk
+  uint64_t* chk_empty = bars + 4 * kSlots + 4;  // [pipe][2], 128 consumer threads
+  uint64_t* slab_full = bars + 4 * kSlots + 8;  // bytes of a slab
+  uint64_t* slab_empty = slab_full + 1;            // 256 consumer threads
+  uint64_t* turn = slab_full + 2;                  // [pipe], 128 threads of the other pipe
+  // The warp index through a shuffle, so that the compiler sees every role
+  // branch as warp-uniform (a divergent path around wgmma serialises it).
+  const int tid = threadIdx.x, warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  // This CTA's tiles [lo, hi), and the slabs they span.
+  const int lo = (int)((long long)blockIdx.x * p.n_tiles / gridDim.x);
+  const int hi = (int)((long long)(blockIdx.x + 1) * p.n_tiles / gridDim.x);
+  const int slab_lo = lo / p.tiles_per_slab;
+  const int n_slabs = (hi - 1) / p.tiles_per_slab - slab_lo + 1;
+  const int bm = 64 * MT;
+  if (tid == 0) {
+    for (int i = 0; i < 2 * kSlots; ++i) {
+      mbar_init(win_full + i, kWinThreads);
+      mbar_init(win_empty + i, 128);
+    }
+    for (int i = 0; i < 4; ++i) {
+      mbar_init(chk_full + i, 1);
+      mbar_init(chk_empty + i, 128);
+    }
+    mbar_init(slab_full, 1);
+    mbar_init(slab_empty, 256);
+    mbar_init(turn, 128);
+    mbar_init(turn + 1, 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  const int tt = s * p.bq, t0 = q0 * s;
-  for (int c = 0; c < NB; ++c) {
-    const int cc = ct * NB + c;
-    if (cc >= p.cg) break;
-    bf16* dxr = dx + ((size_t)b * p.Cin + (size_t)g * p.cg + cc) * p.Tin;
-    for (int tl = threadIdx.x; tl < tt && t0 + tl < p.Tin; tl += kThreads)
-      dxr[t0 + tl] = __float2bfloat16(sout[c * p.so_stride + tl]);
+
+  if (warp >= 12) {
+    // ---- Weights: lane 0 of warp 12 (pipe 0, and the resident slabs) or
+    // 13 (pipe 1). ----
+    const int pipe = warp - 12;
+    if ((tid & 31) != 0 || (p.resident && pipe != 0)) return;
+    // The layout kernel before this one writes wp (programmatic launch:
+    // the other roles start meanwhile, on data that kernel does not touch).
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    const char* wb = reinterpret_cast<const char*>(wp);
+    if (p.resident) {
+      const uint32_t bytes = (uint32_t)(p.KE * p.tap_bytes);
+      for (int k = 0; k < n_slabs; ++k) {
+        if (k > 0) mbar_wait(slab_empty, (k - 1) & 1);  // both pipes are done with k - 1
+        mbar_expect_tx(slab_full, bytes);
+        bulk_load(conv_smem + p.w_off, wb + (size_t)(slab_lo + k) * bytes, bytes, slab_full);
+      }
+    } else {
+      int m = 0;  // chunks of this pipe so far
+      for (int i = lo + pipe; i < hi; i += 2) {
+        const int slab = i / p.tiles_per_slab;
+        for (int c = 0; c < p.n_chunks; ++c, ++m) {
+          const int cs = pipe * 2 + (m & 1);
+          if (m >= 2) mbar_wait(chk_empty + cs, ((m >> 1) - 1) & 1);
+          const int t0 = c * p.ck, n_taps = min(p.ck, p.KE - t0);
+          const uint32_t bytes = (uint32_t)(n_taps * p.tap_bytes);
+          mbar_expect_tx(chk_full + cs, bytes);
+          bulk_load(conv_smem + p.w_off + (size_t)cs * p.ck * p.tap_bytes,
+                    wb + ((size_t)slab * p.KE + t0) * p.tap_bytes, bytes, chk_full + cs);
+        }
+      }
+    }
+    return;
+  }
+
+  if (warp >= 8) {
+    // ---- Windows: warps 8-9 for pipe 0, 10-11 for pipe 1. Window position
+    // pv (source time t0 + pv) of channels 8*c8.. goes to row pv div S of
+    // plane pv mod S, as one 16-byte row of 8 channels. ----
+    const int pipe = (warp - 8) >> 1, ptid = tid - 256 - pipe * kWinThreads;
+    const unsigned short* srch = reinterpret_cast<const unsigned short*>(src);
+    const int sv = p.S * p.V;
+    int s_idx = 0, s_round = 0;  // ring slot and the times the ring went round
+    for (int i = lo + pipe; i < hi; i += 2) {
+      const ConvTile t = conv_tile(p, i);
+      const int slot = pipe * kSlots + s_idx;
+      if (s_round > 0) mbar_wait(win_empty + slot, (s_round - 1) & 1);
+      bf16* win = reinterpret_cast<bf16*>(conv_smem + p.win_off + (size_t)slot * p.slot_bytes);
+      const unsigned short* sb = srch + ((size_t)t.b * p.C_src + (size_t)t.g * p.CR) * p.T_src;
+      const int t0 = t.tt * bm * p.S + p.t_off;
+      if (p.vec) {
+        // 16-byte loads of 8 time steps of one channel (T_src % 8 == 0, so
+        // an aligned 8-step chunk lies wholly inside or outside the source),
+        // transposed in registers: unit (c8, k) covers source times
+        // T0 + 8k.. of channels 8*c8.., two units in flight per thread.
+        const int T0 = t0 & ~7, nch = (((t0 + sv + 7) & ~7) - T0) >> 3;
+        const int n_units = nch * p.C8;
+        for (int u0 = ptid; u0 < n_units; u0 += 2 * kWinThreads) {
+          uint4 v[2][8];
+          int c8s[2], tks[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int u = u0 + h * kWinThreads;
+            const int c8 = u / nch, tk = T0 + 8 * (u - c8 * nch);
+            c8s[h] = c8;
+            tks[h] = tk;
+            const int n_ok = (u < n_units && tk >= 0 && tk < p.T_src) ? p.CR - c8 * 8 : 0;
+            const unsigned short* s8 = sb + (size_t)(c8 * 8) * p.T_src + tk;
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              v[h][e] = e < n_ok ? __ldg(reinterpret_cast<const uint4*>(s8 + (size_t)e * p.T_src))
+                                 : make_uint4(0, 0, 0, 0);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (u0 + h * kWinThreads >= n_units) continue;
+            const int pv0 = tks[h] - t0;
+#pragma unroll
+            for (int q = 0; q < 8; ++q) {
+              const int pv = pv0 + q;
+              if (pv < 0 || pv >= sv) continue;
+              const uint32_t sel = (q & 1) ? 0x7632u : 0x5410u;
+              uint32_t wd[4];
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                const uint4& a = v[h][2 * c];
+                const uint4& b = v[h][2 * c + 1];
+                const uint32_t wa = (q >> 1) == 0 ? a.x : (q >> 1) == 1 ? a.y : (q >> 1) == 2 ? a.z : a.w;
+                const uint32_t wb2 = (q >> 1) == 0 ? b.x : (q >> 1) == 1 ? b.y : (q >> 1) == 2 ? b.z : b.w;
+                wd[c] = __byte_perm(wa, wb2, sel);
+              }
+              const int plane = pv & (p.S - 1), row = pv >> p.s_shift;
+              *reinterpret_cast<uint4*>(win + ((size_t)(plane * p.C8 + c8s[h]) * p.V + row) * 8) =
+                  make_uint4(wd[0], wd[1], wd[2], wd[3]);
+            }
+          }
+        }
+      } else {
+        // Any length: eight 2-byte loads per 16-byte row, four rows' loads
+        // in flight per thread.
+        const int n_pieces = sv * p.C8;
+        for (int base = ptid; base < n_pieces; base += 4 * kWinThreads) {
+          uint4 v[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int idx = base + u * kWinThreads;
+            unsigned short e8[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) e8[e] = 0;
+            if (idx < n_pieces) {
+              const int c8 = idx / sv, tt = t0 + idx - c8 * sv;
+              const int n_ok = (tt >= 0 && tt < p.T_src) ? p.CR - c8 * 8 : 0;
+              const unsigned short* s8 = sb + (size_t)(c8 * 8) * p.T_src + tt;
+#pragma unroll
+              for (int e = 0; e < 8; ++e)
+                if (e < n_ok) e8[e] = __ldg(s8 + (size_t)e * p.T_src);
+            }
+            v[u] = make_uint4(pack2(e8[0], e8[1]), pack2(e8[2], e8[3]), pack2(e8[4], e8[5]),
+                              pack2(e8[6], e8[7]));
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int idx = base + u * kWinThreads;
+            if (idx < n_pieces) {
+              const int c8 = idx / sv, pv = idx - c8 * sv;
+              const int plane = pv % p.S, row = pv / p.S;
+              *reinterpret_cast<uint4*>(win + ((size_t)(plane * p.C8 + c8) * p.V + row) * 8) =
+                  v[u];
+            }
+          }
+        }
+      }
+      fence_async_smem();
+      mbar_arrive(win_full + slot);
+      if (++s_idx == kSlots) {
+        s_idx = 0;
+        ++s_round;
+      }
+    }
+    return;
+  }
+
+  // ---- Consumers: warpgroup 0 (pipe 0) or 1 (pipe 1). ----
+  const int pipe = warp >> 2, wtid = tid & 127, wwarp = warp & 3, lane = tid & 31;
+  const uint32_t base_addr = smem_addr(conv_smem);
+  // This thread's accumulator columns 8*j + 2*(lane % 4) and the one after:
+  // the first one's element offset in the output tile, [co][R*row + r] for
+  // column co*R + r. The second is the next channel (R 1) or the next
+  // phase of the same channel (R even); an odd R > 1 computes it.
+  const int ncol = p.R * p.CO;
+  int coff[NT / 8];
+#pragma unroll
+  for (int j = 0; j < NT / 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3), co = col / p.R;
+    coff[j] = co * p.out_ld + col - co * p.R;
+  }
+  float acc[MT][NT / 2];
+  int s_idx = 0, s_round = 0, m = 0, slab_k = -1;
+  // The pipes take turns to issue their products (pipe 0 first), so that
+  // one pipe's epilogue runs under the other's products: pipe 0's k-th
+  // tile waits for pipe 1's (k-1)-th issue, pipe 1's k-th for pipe 0's
+  // k-th. The tiles per pipe say which turns exist.
+  const int n_other = pipe ? (hi - lo + 1) / 2 : (hi - lo) / 2;
+  int k_tile = 0;
+  for (int i = lo + pipe; i < hi; i += 2, ++k_tile) {
+    const ConvTile t = conv_tile(p, i);
+    const int slot = pipe * kSlots + s_idx;
+    const uint32_t slot_off = p.win_off + (uint32_t)slot * p.slot_bytes;
+    mbar_wait(win_full + slot, s_round & 1);
+    if (p.resident) {
+      // Every slab of the range in turn, this pipe's tiles in it or not,
+      // so that slab_empty's phases follow the loads.
+      while (slab_k < t.slab - slab_lo) {
+        if (slab_k >= 0) mbar_arrive(slab_empty);
+        ++slab_k;
+        mbar_wait(slab_full, slab_k & 1);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < MT; ++h) {
+#pragma unroll
+      for (int q = 0; q < NT / 2; ++q) acc[h][q] = 0.f;
+      fence_acc(acc[h]);
+    }
+    wgmma_fence();
+    const uint32_t win_addr = base_addr + slot_off;
+    if (pipe == 1 || (k_tile >= 1 && k_tile - 1 < n_other))
+      mbar_wait(turn + pipe, (pipe ? k_tile : k_tile - 1) & 1);
+    // One chunk of all taps on the resident slab, or n_chunks streamed
+    // ones: a chunk's slot is freed once the next chunk's products are
+    // issued and its own are done.
+    for (int c = 0; c < p.n_chunks; ++c, ++m) {
+      const int cs = pipe * 2 + (m & 1);
+      if (!p.resident) mbar_wait(chk_full + cs, (m >> 1) & 1);
+      const int t0 = c * p.ck;
+      const uint32_t w_addr =
+          base_addr + p.w_off + (p.resident ? 0u : (uint32_t)(cs * p.ck * p.tap_bytes));
+      conv_taps<NT, MT>(acc, p, win_addr, w_addr, t0, min(p.KE, t0 + p.ck));
+      wgmma_commit();
+      if (c == p.n_chunks - 1) mbar_arrive(turn + (pipe ^ 1));  // the other pipe's turn
+      if (c > 0) {
+        wgmma_wait<1>();
+        mbar_arrive(chk_empty + pipe * 2 + ((m - 1) & 1));
+      }
+    }
+    wgmma_wait<0>();
+    if (!p.resident) mbar_arrive(chk_empty + pipe * 2 + ((m - 1) & 1));
+#pragma unroll
+    for (int h = 0; h < MT; ++h) fence_acc(acc[h]);
+
+    // ---- Epilogue: the tile as [channel][time] bf16 in the window slot
+    // (every warp of the group has passed its wait), then 16-byte rows.
+    // Columns co*R + r and co*R + r + 1 of one row are adjacent times when
+    // R is even: one 4-byte store. ----
+    named_sync(1 + pipe, 128);
+    bf16* ot = reinterpret_cast<bf16*>(conv_smem + slot_off);
+#pragma unroll
+    for (int h = 0; h < MT; ++h) {
+#pragma unroll
+      for (int q = 0; q < NT / 2; q += 2) {
+        const int row = h * 64 + wwarp * 16 + (lane >> 2) + ((q >> 1) & 1) * 8;
+        const int j = q >> 2, col = 8 * j + 2 * (lane & 3);
+        const bf16 v0 = __float2bfloat16(acc[h][q]), v1 = __float2bfloat16(acc[h][q + 1]);
+        bf16* o0 = ot + coff[j] + row * p.R;
+        if ((p.R & 1) == 0) {
+          if (col < ncol) *reinterpret_cast<__nv_bfloat162*>(o0) = __halves2bfloat162(v0, v1);
+        } else if (p.R == 1) {
+          if (col < ncol) *o0 = v0;
+          if (col + 1 < ncol) o0[p.out_ld] = v1;
+        } else {
+          if (col < ncol) *o0 = v0;
+          if (col + 1 < ncol) {
+            const int co1 = (col + 1) / p.R;
+            ot[co1 * p.out_ld + col + 1 - co1 * p.R + row * p.R] = v1;
+          }
+        }
+      }
+    }
+    named_sync(1 + pipe, 128);
+    const int rows = p.R * bm, t_first = t.tt * rows;
+    const int co_lim = min(p.CO, p.CO_total - t.nt * p.CO);
+    const int t_lim = min(rows, p.T_dst - t_first);
+    bf16* db = dst + ((size_t)t.b * p.C_dst + (size_t)t.g * p.CO_total + (size_t)t.nt * p.CO) *
+                         p.T_dst + t_first;
+    if ((p.T_dst & 7) == 0) {
+      const int per = rows >> 3;  // 16-byte pieces of a row
+      for (int idx = wtid; idx < co_lim * per; idx += 128) {
+        const int co = idx / per, tl = (idx - co * per) * 8;
+        const bf16* s8 = ot + co * p.out_ld + tl;
+        bf16* d8 = db + (size_t)co * p.T_dst + tl;
+        if (tl + 8 <= t_lim)
+          *reinterpret_cast<uint4*>(d8) = *reinterpret_cast<const uint4*>(s8);
+        else
+          for (int e = 0; e < t_lim - tl; ++e) d8[e] = s8[e];
+      }
+    } else {
+      for (int idx = wtid; idx < co_lim * rows; idx += 128) {
+        const int co = idx / rows, tl = idx - co * rows;
+        if (tl < t_lim) db[(size_t)co * p.T_dst + tl] = ot[co * p.out_ld + tl];
+      }
+    }
+    mbar_arrive(win_empty + slot);
+    if (++s_idx == kSlots) {
+      s_idx = 0;
+      ++s_round;
+    }
+  }
+  if (p.resident) {
+    while (slab_k < n_slabs - 1) {
+      if (slab_k >= 0) mbar_arrive(slab_empty);
+      ++slab_k;
+      mbar_wait(slab_full, slab_k & 1);
+    }
+  }
+}
+
+template <int NT, int MT>
+__global__ void __launch_bounds__(kConvThreads, 1)
+conv_fwd_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
+                      bf16* __restrict__ y, const ConvParams p) {
+  conv_wgmma_body<NT, MT>(x, wp, y, p);
+}
+
+template <int NT, int MT>
+__global__ void __launch_bounds__(kConvThreads, 1)
+conv_dx_wgmma_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ wp,
+                     bf16* __restrict__ dx, const ConvParams p) {
+  conv_wgmma_body<NT, MT>(dy, wp, dx, p);
+}
+
+// The weights [Cout, cg, K] as the kernels' slabs [G * n_nt][KE][C8][NT][8]:
+// element (slab, t, c8, n, e) is reduction channel cr = 8*c8 + e of column
+// n = co*R + r (channel nt*CO + co, phase r), tap j = t (forward) or
+// P0 + r - stride*t (dX); zero past the channels, columns and taps. One
+// launch per call (ops/grouped_conv.py _layout_weights is the same map).
+__global__ void conv_weight_layout_kernel(const bf16* __restrict__ w, bf16* __restrict__ wp,
+                                          const ConvParams p, int nt_w, int total) {
+  // The conv kernel launched after this one may start now: only its weight
+  // thread waits (griddepcontrol.wait) for this grid to finish.
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total; i += gridDim.x * blockDim.x) {
+    int rest = i >> 3;
+    const int e = i & 7;
+    const int n = rest % nt_w;
+    rest /= nt_w;
+    const int c8 = rest % p.C8;
+    rest /= p.C8;
+    const int t = rest % p.KE;
+    const int slab = rest / p.KE;
+    const int g = slab / p.n_nt, nt = slab - g * p.n_nt;
+    const int cr = c8 * 8 + e, co = n / p.R, r = n - co * p.R, ch = nt * p.CO + co;
+    const int j = p.dx ? p.P0 + r - p.stride * t : t;
+    bf16 v = __float2bfloat16(0.f);
+    if (n < p.R * p.CO && cr < p.CR && ch < p.CO_total && j >= 0 && j < p.K) {
+      // forward: w[g*og + ch, cr, j]; dX: w[g*og + cr, ch, j]
+      const int o = p.dx ? g * p.CR + cr : g * p.CO_total + ch;
+      const int c = p.dx ? ch : cr;
+      v = w[((size_t)o * (p.dx ? p.CO_total : p.CR) + c) * p.K + j];
+    }
+    wp[i] = v;
   }
 }
 
@@ -829,31 +1126,53 @@ int launch_fwd(const void* x, const void* w, void* y, int B, int Tin, int Cin, i
   return (int)cudaGetLastError();
 }
 
-template <int OB, int CC>
-int launch_fwd_bf16(const void* x, const void* wp, void* y, const FwdParams& p, dim3 grid,
-                    int smem_bytes, cudaStream_t stream) {
-  if (p.bm != FwdTile<OB>::BM) return (int)cudaErrorInvalidValue;
-  auto kern = conv_fwd_bf16_kernel<OB, CC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+template <int NT, int MT>
+int launch_conv(bool dx, const void* src, const void* w, void* wp, void* dst,
+                const ConvParams& p, int grid, int smem_bytes, cudaStream_t stream) {
+  const int total = p.G * p.n_nt * p.KE * p.C8 * NT * 8;
+  conv_weight_layout_kernel<<<(total + 255) / 256, 256, 0, stream>>>(
+      static_cast<const bf16*>(w), static_cast<bf16*>(wp), p, NT, total);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  kern<<<grid, kThreads, smem_bytes, stream>>>(static_cast<const bf16*>(x),
-                                               static_cast<const bf16*>(wp),
-                                               static_cast<bf16*>(y), p);
-  return (int)cudaGetLastError();
+  void (*kern)(const bf16*, const bf16*, bf16*, const ConvParams) =
+      dx ? conv_dx_wgmma_kernel<NT, MT> : conv_fwd_wgmma_kernel<NT, MT>;
+  // The shared-memory limit each kernel has been given so far (raised, never
+  // lowered: one attribute call per kernel and size, not per launch).
+  static int smem_set[2] = {0, 0};
+  if (smem_bytes > smem_set[dx]) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dx] = smem_bytes;
+  }
+  // Programmatic dependent launch: the kernel's prologue and first windows
+  // overlap the layout kernel's run.
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kConvThreads);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kern, static_cast<const bf16*>(src),
+                                 static_cast<const bf16*>(wp), static_cast<bf16*>(dst), p);
 }
 
-template <int MTM, int NT, int OC>
-int launch_dx(const void* dy, const void* wph, void* dx, const DxParams& p, dim3 grid,
-              int smem_bytes, cudaStream_t stream) {
-  auto kern = conv_dx_kernel<MTM, NT, OC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<grid, kThreads, smem_bytes, stream>>>(static_cast<const bf16*>(dy),
-                                               static_cast<const bf16*>(wph),
-                                               static_cast<bf16*>(dx), p);
-  return (int)cudaGetLastError();
+int dispatch_conv(bool dx, const void* src, const void* w, void* wp, void* dst,
+                  const int* params, int nt, int grid, int smem_bytes, void* stream) {
+  const ConvParams& p = *reinterpret_cast<const ConvParams*>(params);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (nt * 4 + p.mt) {
+    case 16 * 4 + 1: return launch_conv<16, 1>(dx, src, w, wp, dst, p, grid, smem_bytes, s);
+    case 16 * 4 + 2: return launch_conv<16, 2>(dx, src, w, wp, dst, p, grid, smem_bytes, s);
+    case 32 * 4 + 1: return launch_conv<32, 1>(dx, src, w, wp, dst, p, grid, smem_bytes, s);
+    case 32 * 4 + 2: return launch_conv<32, 2>(dx, src, w, wp, dst, p, grid, smem_bytes, s);
+    case 64 * 4 + 1: return launch_conv<64, 1>(dx, src, w, wp, dst, p, grid, smem_bytes, s);
+    case 64 * 4 + 2: return launch_conv<64, 2>(dx, src, w, wp, dst, p, grid, smem_bytes, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <int MW, int CB>
@@ -887,45 +1206,30 @@ int grouped_conv1d_fwd_f32(const void* x, const void* w, void* y, int bn, int B,
   }
 }
 
-// bf16 forward. params: the FwdParams fields in order; ob = output channels
-// per block (16, 32 or 64), cc = input channels per chunk (16 or 32); wp is
-// [G, n_otiles, K, ob, cg_pad].
-int grouped_conv1d_fwd_bf16(const void* x, const void* wp, void* y, const int* params,
-                            int ob, int cc, int grid_x, int grid_y, int grid_z,
-                            int smem_bytes, void* stream) {
-  const FwdParams& p = *reinterpret_cast<const FwdParams*>(params);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(grid_x, grid_y, grid_z);
-  if (cc == 16) {
-    if (ob == 16) return launch_fwd_bf16<16, 16>(x, wp, y, p, grid, smem_bytes, s);
-    if (ob == 32) return launch_fwd_bf16<32, 16>(x, wp, y, p, grid, smem_bytes, s);
-    if (ob == 64) return launch_fwd_bf16<64, 16>(x, wp, y, p, grid, smem_bytes, s);
-  } else if (cc == 32) {
-    if (ob == 16) return launch_fwd_bf16<16, 32>(x, wp, y, p, grid, smem_bytes, s);
-    if (ob == 32) return launch_fwd_bf16<32, 32>(x, wp, y, p, grid, smem_bytes, s);
-    if (ob == 64) return launch_fwd_bf16<64, 32>(x, wp, y, p, grid, smem_bytes, s);
-  }
-  return (int)cudaErrorInvalidValue;
+// bf16 forward and dX (conv_fwd_wgmma_kernel, conv_dx_wgmma_kernel), each
+// after conv_weight_layout_kernel. params: the ConvParams fields in order;
+// nt = the wgmma N (16, 32 or 64); wp: scratch of G * n_nt * KE * C8 * nt * 8
+// bf16 for the layout; grid: persistent CTAs.
+int grouped_conv1d_fwd_bf16(const void* x, const void* w, void* wp, void* y,
+                            const int* params, int nt, int grid, int smem_bytes,
+                            void* stream) {
+  return dispatch_conv(false, x, w, wp, y, params, nt, grid, smem_bytes, stream);
 }
 
-// bf16 dX. params: the DxParams fields in order; nb = input channels per
-// block (16 or 32), oc = output channels per chunk (16, 32 or 64).
-int grouped_conv1d_dx_bf16(const void* dy, const void* wph, void* dx, const int* params,
-                           int nb, int oc, int grid_x, int grid_y, int grid_z,
-                           int smem_bytes, void* stream) {
-  const DxParams& p = *reinterpret_cast<const DxParams*>(params);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(grid_x, grid_y, grid_z);
-  if (nb == 32) {
-    if (oc == 16) return launch_dx<2, 4, 16>(dy, wph, dx, p, grid, smem_bytes, s);
-    if (oc == 32) return launch_dx<2, 4, 32>(dy, wph, dx, p, grid, smem_bytes, s);
-    if (oc == 64) return launch_dx<2, 4, 64>(dy, wph, dx, p, grid, smem_bytes, s);
-  } else if (nb == 16) {
-    if (oc == 16) return launch_dx<4, 2, 16>(dy, wph, dx, p, grid, smem_bytes, s);
-    if (oc == 32) return launch_dx<4, 2, 32>(dy, wph, dx, p, grid, smem_bytes, s);
-    if (oc == 64) return launch_dx<4, 2, 64>(dy, wph, dx, p, grid, smem_bytes, s);
-  }
-  return (int)cudaErrorInvalidValue;
+int grouped_conv1d_dx_bf16(const void* dy, const void* w, void* wp, void* dx,
+                           const int* params, int nt, int grid, int smem_bytes,
+                           void* stream) {
+  return dispatch_conv(true, dy, w, wp, dx, params, nt, grid, smem_bytes, stream);
+}
+
+// The layout kernel alone (chip_smoke.py holds it against _layout_weights).
+int grouped_conv1d_weight_layout(const void* w, void* wp, const int* params, int nt,
+                                 void* stream) {
+  const ConvParams& p = *reinterpret_cast<const ConvParams*>(params);
+  const int total = p.G * p.n_nt * p.KE * p.C8 * nt * 8;
+  conv_weight_layout_kernel<<<(total + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(w), static_cast<bf16*>(wp), p, nt, total);
+  return (int)cudaGetLastError();
 }
 
 // bf16 dW. params: the DwParams fields in order; ob = output channels per

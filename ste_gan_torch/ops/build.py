@@ -32,8 +32,9 @@ _INTS = ctypes.POINTER(ctypes.c_int)  # a kernel's parameter struct of ints
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "grouped_conv": {
         "grouped_conv1d_fwd_f32": [_P, _P, _P] + [_I] * 14 + [_P],
-        "grouped_conv1d_fwd_bf16": [_P, _P, _P, _INTS] + [_I] * 6 + [_P],
-        "grouped_conv1d_dx_bf16": [_P, _P, _P, _INTS] + [_I] * 6 + [_P],
+        "grouped_conv1d_fwd_bf16": [_P] * 4 + [_INTS] + [_I] * 3 + [_P],
+        "grouped_conv1d_dx_bf16": [_P] * 4 + [_INTS] + [_I] * 3 + [_P],
+        "grouped_conv1d_weight_layout": [_P, _P, _INTS, _I, _P],
         "grouped_conv1d_dw_bf16": [_P, _P, _P, _P, _INTS] + [_I] * 6 + [_P],
         "grouped_conv1d_dw_f32": [_P, _P, _P, _P] + [_I] * 14 + [_P],
     },

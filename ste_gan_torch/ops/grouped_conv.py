@@ -15,15 +15,20 @@ operand type.
 
 The data gradient is a polyphase transposed conv: input position
 ``t = s*q + r`` (phase ``r``) receives only the taps ``j0_r + s*m`` at
-``dy[q + d_r - m]`` (:func:`phases`), so no stride-dilated ``dy`` is built
-and no zero is multiplied. Routes by operand type:
+``dy[q + d_r - m]`` (:func:`phases`), so no stride-dilated ``dy`` is built.
+Routes by operand type:
 
-* bf16 (the main path), all on the tensor cores: ``conv_fwd_bf16_kernel``
-  (the forward as an implicit GEMM per group, over a phase-split input
-  window; it replaces ``pallas_conv.py:147`` ``_fwd_kernel``),
-  ``conv_dx_kernel`` (polyphase dX) and ``conv_dw_partial_kernel`` +
-  ``conv_dw_reduce_kernel`` (implicit-GEMM dW). Their launch plans are
-  :func:`_plan_fwd`, :func:`_plan_dx` and :func:`_plan_dw`, pure Python.
+* bf16 (the main path), on the tensor cores: ``conv_fwd_wgmma_kernel`` (the
+  forward; it replaces ``pallas_conv.py:147`` ``_fwd_kernel``) and
+  ``conv_dx_wgmma_kernel`` (dX; the phases fused into the columns of one
+  stride-1 GEMM over a shared ``dy`` window), one wgmma mainloop with
+  weights resident per (group, channel tile) in persistent CTAs, each
+  after the one-launch ``conv_weight_layout_kernel``; and
+  ``conv_dw_partial_kernel`` + ``conv_dw_reduce_kernel`` (implicit-GEMM dW,
+  ``mma.sync``). Their launch plans are :func:`_plan_conv` and
+  :func:`_plan_dw`, pure Python; :func:`_layout_weights` and
+  :func:`emulate_conv` repeat the wgmma kernels' layouts and schedule on
+  the CPU, for the tests.
 * f32 (exact, no TF32): the CUDA-core kernels of the first port.
   ``conv_fwd_kernel`` is the forward; dX runs it on stride-dilated ``dy``
   with flipped, transposed weights (:func:`dilate_flip`, which only this
@@ -50,9 +55,10 @@ _THREADS = 256
 _WARPS = _THREADS // 32
 _SMEM_LIMIT = 227 * 1024
 _DTYPES = (torch.float32, torch.bfloat16)
-#: Shared memory a forward or dX block aims at, so that two blocks share an
-#: SM.
-_SMEM_TARGET = 100 * 1024
+#: The wgmma forward and dX: widest N, and the mbarriers' bytes at the start
+#: of shared memory.
+_CONV_MAX_N = 64
+_BAR_BYTES = 256
 #: dW: rows (time steps of one batch row) per staged tile, as ``kBT``.
 _DW_ROWS = 128
 #: dW: most blocks to launch, two full waves of an H100's 132 SMs at the
@@ -64,6 +70,10 @@ _DW_MIN_TILES = 4
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _round_up(a: int, b: int) -> int:
+    return _cdiv(a, b) * b
 
 
 def out_length(t_in: int, k: int, stride: int, pad_l: int, pad_r: int) -> int:
@@ -176,13 +186,12 @@ def conv_dw_plain(x, dy, k: int, stride: int, pad_l: int, pad_r: int,
 # struct, in its order.
 # ---------------------------------------------------------------------------
 
-_FWD_FIELDS = ("B", "Cin", "Cout", "Tin", "Tout", "K", "stride", "pad_l", "G",
-               "cg", "og", "n_otiles", "cg_pad", "n_cchunks",
-               "bm", "V", "mt", "n_mchunks", "so_stride")
-_DX_FIELDS = ("B", "Cin", "Cout", "Tin", "Tout", "K", "stride", "pad_l", "G",
-              "cg", "og", "n_ctiles", "og_pad", "n_ochunks",
-              "bq", "upp", "rounds", "nmax", "dmin", "win_rows",
-              "mt", "n_mchunks", "out_off", "so_stride")
+_CONV_FIELDS = ("B", "C_src", "T_src", "C_dst", "T_dst", "G",
+                "CR", "C8", "S", "KE", "t_off", "R", "CO", "CO_total", "n_nt",
+                "mt", "n_tt", "V", "tiles_per_slab", "n_tiles",
+                "resident", "ck", "n_chunks",
+                "slot_bytes", "tap_bytes", "w_off", "win_off", "out_ld",
+                "K", "stride", "P0", "dx", "vec", "s_shift")
 _DW_FIELDS = ("B", "Cin", "Cout", "Tin", "Tout", "K", "stride", "pad_l", "G",
               "cg", "og", "n_otiles", "n_ctiles", "kt", "tiles_per_b",
               "n_rtiles", "tiles_per_chunk", "V")
@@ -192,183 +201,267 @@ def _struct(plan, fields) -> ctypes.Array:
     return (ctypes.c_int * len(fields))(*(getattr(plan, f) for f in fields))
 
 
-#: Forward: time rows per block by output channels per block, as
-#: ``FwdTile<OB>::BM`` (the 8 warps tile BM x OB with warp tiles of 32x32,
-#: 64x16 at OB 16).
-_FWD_BM = {16: 512, 32: 256, 64: 128}
-
-
 @dataclasses.dataclass(frozen=True)
-class FwdPlan:
+class ConvPlan:
+    """One launch of ``conv_fwd_wgmma_kernel`` or ``conv_dx_wgmma_kernel``:
+    per (group, channel tile) a GEMM of time rows by ``nt_w`` columns over
+    (tap, reduction channel). The forward reads x (``S`` = stride planes,
+    ``KE`` = K taps, columns = output channels); dX reads dy at stride 1
+    (``KE`` = the dy offsets of all phases, columns = (phase, input
+    channel))."""
     B: int
-    Cin: int
-    Cout: int
-    Tin: int
-    Tout: int
+    C_src: int         # channels of the source, x or dy
+    T_src: int
+    C_dst: int         # channels of the destination, y or dx
+    T_dst: int
+    G: int
+    CR: int            # reduction channels per group (cg, or og for dX)
+    C8: int            # their 8-channel groups, padded to a k16 multiple
+    S: int             # window planes: the stride, or 1 for dX
+    KE: int            # taps: K, or the dy offsets of dX
+    t_off: int         # window position 0's source time, less the tile's
+    R: int             # phases in the columns (co*R + r): 1, or dX's stride
+    CO: int            # destination channels per channel tile
+    CO_total: int      # destination channels per group
+    n_nt: int          # channel tiles per group
+    mt: int            # m64 products per tile (tile rows 64 * mt)
+    n_tt: int          # time tiles per batch row
+    V: int             # window rows per plane
+    tiles_per_slab: int
+    n_tiles: int
+    resident: int      # 1: a slab stays in shared memory; 0: streamed
+    ck: int            # taps per streamed chunk (KE when resident)
+    n_chunks: int
+    slot_bytes: int    # one window slot (also the output tile)
+    tap_bytes: int     # one tap of weights, C8 * nt_w * 16
+    w_off: int         # the slab or chunk ring in shared memory
+    win_off: int       # the four window slots (two per pipe)
+    out_ld: int        # elements per channel row of the output tile
     K: int
     stride: int
-    pad_l: int
-    G: int
-    cg: int
-    og: int
-    n_otiles: int    # output-channel tiles of ob per group
-    cg_pad: int      # cg rounded up to whole c-chunks
-    n_cchunks: int   # chunks of cc input channels (with the taps, the reduction)
-    bm: int          # output time rows per block
-    V: int           # x window rows per phase
-    mt: int          # taps per weight stage
-    n_mchunks: int   # weight stages per c-chunk
-    so_stride: int   # floats per channel row of the output tile
-    ob: int          # output channels per block (16, 32 or 64)
-    cc: int          # input channels per chunk (16 or 32)
-    n_ttiles: int
+    P0: int            # dX: phase r's tap at offset t is P0 + r - stride*t
+    dx: int
+    vec: int           # 16-byte window loads: T_src % 8 == 0, S a power of 2
+    s_shift: int       # log2 S when S is a power of 2
+    nt_w: int          # the wgmma N: 16, 32 or 64
+    grid: int          # persistent CTAs
     smem: int
 
     @property
-    def grid(self) -> Tuple[int, int, int]:
-        return (self.n_ttiles, self.G * self.n_otiles, self.B)
+    def bm(self) -> int:
+        return 64 * self.mt
 
     @functools.cached_property
     def args(self) -> ctypes.Array:
-        return _struct(self, _FWD_FIELDS)
-
-    def block(self, bx: int, by: int) -> Tuple[int, range, range]:
-        """(group, output channels, output time steps) of a block, as the
-        kernel decodes blockIdx.x / .y."""
-        g, ot = divmod(by, self.n_otiles)
-        return (g, range(ot * self.ob, min(self.og, (ot + 1) * self.ob)),
-                range(bx * self.bm, min(self.Tout, (bx + 1) * self.bm)))
-
-    def tap_chunks(self) -> Iterator[Tuple[int, range]]:
-        """(c-chunk start, taps) of each weight stage, in order."""
-        for ch in range(self.n_cchunks * self.n_mchunks):
-            cc_i, mc = divmod(ch, self.n_mchunks)
-            j0 = mc * self.mt
-            yield cc_i * self.cc, range(j0, min(j0 + self.mt, self.K))
-
-    def tap_rows(self, j: int) -> Tuple[int, int]:
-        """(plane, window row) that tap ``j`` reads for a block's first
-        output; output ``i`` of the block reads ``i`` rows further."""
-        return j % self.stride, j // self.stride
-
-
-@functools.lru_cache(maxsize=256)
-def _plan_fwd(b: int, c_in: int, c_out: int, k: int, stride: int, pad_l: int,
-              t_in: int, t_out: int, groups: int) -> FwdPlan:
-    """Tiles, grid and shared memory of ``conv_fwd_bf16_kernel``."""
-    cg, og = c_in // groups, c_out // groups
-    ob = 16 if og <= 16 else (32 if og <= 32 else 64)
-    cc = 16 if cg <= 16 else 32
-    bm = _FWD_BM[ob]
-    n_cchunks = _cdiv(cg, cc)
-    v = bm + (k - 1) // stride
-    ccp = cc + 8
-    win_bytes = 2 * stride * v * ccp
-    tap_bytes = 2 * ob * ccp
-    mt = max(1, min(k, (_SMEM_TARGET - win_bytes) // (2 * tap_bytes)))
-    n_mchunks = _cdiv(k, mt)
-    mt = _cdiv(k, n_mchunks)
-    so_stride = bm + 4
-    smem = max(win_bytes + 2 * mt * tap_bytes, 4 * ob * so_stride)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"grouped conv forward tile needs {smem} bytes of "
-                         f"shared memory (K {k}, stride {stride})")
-    return FwdPlan(b, c_in, c_out, t_in, t_out, k, stride, pad_l, groups, cg,
-                   og, _cdiv(og, ob), n_cchunks * cc, n_cchunks, bm, v, mt,
-                   n_mchunks, so_stride, ob, cc, _cdiv(t_out, bm), smem)
-
-
-@dataclasses.dataclass(frozen=True)
-class DxPlan:
-    B: int
-    Cin: int
-    Cout: int
-    Tin: int
-    Tout: int
-    K: int
-    stride: int
-    pad_l: int
-    G: int
-    cg: int
-    og: int
-    n_ctiles: int    # input-channel tiles of nb per group
-    og_pad: int      # og rounded up to whole o-chunks
-    n_ochunks: int   # chunks of oc output channels (the reduction)
-    bq: int          # rows q per phase in one block's time tile
-    upp: int         # warp units per phase (bq / wm)
-    rounds: int      # passes of the 8 warps over the stride * upp units
-    nmax: int        # most taps of any phase
-    dmin: int        # smallest dy offset d of any phase
-    win_rows: int    # dy rows staged per block
-    mt: int          # taps of every phase per weight stage
-    n_mchunks: int   # weight stages per o-chunk
-    out_off: int     # byte offset of the output tile in shared memory
-    so_stride: int   # floats per channel row of the output tile
-    nb: int          # input channels per block (16 or 32)
-    oc: int          # output channels per reduction chunk (16, 32 or 64)
-    wm: int          # rows per warp unit
-    n_ttiles: int
-    smem: int
+        return _struct(self, _CONV_FIELDS)
 
     @property
-    def grid(self) -> Tuple[int, int, int]:
-        return (self.n_ttiles, self.G * self.n_ctiles, self.B)
+    def w_numel(self) -> int:
+        """bf16 elements of the laid-out weights, every slab."""
+        return self.G * self.n_nt * self.KE * self.C8 * self.nt_w * 8
 
-    @functools.cached_property
-    def args(self) -> ctypes.Array:
-        return _struct(self, _DX_FIELDS)
+    def cta_tiles(self, cta: int) -> range:
+        """The contiguous tiles of a CTA, as the kernel splits them."""
+        return range(cta * self.n_tiles // self.grid,
+                     (cta + 1) * self.n_tiles // self.grid)
 
-    def units(self) -> Iterator[Tuple[int, int, int]]:
-        """(round, phase, first row) of each warp unit, as the kernel
-        assigns them: unit = warp + 8*round, phase = unit // upp."""
-        for rnd in range(self.rounds):
-            for warp in range(_WARPS):
-                unit = warp + _WARPS * rnd
-                r, qg = divmod(unit, self.upp)
-                if r < self.stride:
-                    yield rnd, r, qg * self.wm
+    def pipe_tiles(self, cta: int, pipe: int) -> range:
+        """The tiles consumer warpgroup ``pipe`` of a CTA runs: every other."""
+        tiles = self.cta_tiles(cta)
+        return range(tiles.start + pipe, tiles.stop, 2)
 
-    def tap_chunks(self) -> Iterator[Tuple[int, range]]:
-        """(o-chunk start, taps m) of each weight stage, in order."""
-        for ch in range(self.n_ochunks * self.n_mchunks):
-            oc_i, mc = divmod(ch, self.n_mchunks)
-            m0 = mc * self.mt
-            yield oc_i * self.oc, range(m0, min(m0 + self.mt, self.nmax))
+    def tile(self, i: int) -> Tuple[int, int, int, int]:
+        """(group, channel tile, batch row, time tile) of tile ``i``: slabs
+        ((group, channel tile)) outermost, as ``conv_tile``."""
+        slab, rem = divmod(i, self.tiles_per_slab)
+        b, tt = divmod(rem, self.n_tt)
+        g, nt = divmod(slab, self.n_nt)
+        return g, nt, b, tt
+
+    def tap_rows(self, t: int) -> Tuple[int, int]:
+        """(plane, first window row) that tap ``t`` reads: a tap is a row
+        shift of the descriptor's start."""
+        return t % self.S, t // self.S
+
+    def chunks(self) -> List[range]:
+        """Taps of each weight chunk of a tile, in order (one when
+        resident)."""
+        return [range(c * self.ck, min(self.KE, (c + 1) * self.ck))
+                for c in range(self.n_chunks)]
+
+    def outputs(self, i: int) -> Tuple[int, range, range]:
+        """(batch row, destination channels, destination times) tile ``i``
+        writes."""
+        g, nt, b, tt = self.tile(i)
+        c0 = g * self.CO_total + nt * self.CO
+        n_c = min(self.CO, self.CO_total - nt * self.CO)
+        rows = self.R * self.bm
+        return b, range(c0, c0 + n_c), range(tt * rows,
+                                            min(self.T_dst, (tt + 1) * rows))
 
 
-@functools.lru_cache(maxsize=256)
-def _plan_dx(b: int, c_in: int, c_out: int, k: int, stride: int, pad_l: int,
-             t_in: int, t_out: int, groups: int) -> DxPlan:
-    """Tiles, grid and shared memory of ``conv_dx_kernel``."""
+def _pow2_at_least(n: int, lo: int) -> int:
+    p = lo
+    while p < n:
+        p *= 2
+    return p
+
+
+@functools.lru_cache(maxsize=512)
+def _plan_conv(dx: bool, b: int, c_in: int, c_out: int, k: int, stride: int,
+               pad_l: int, t_in: int, t_out: int, groups: int,
+               n_sm: int = 132) -> ConvPlan:
+    """Tiles, weight residency, grid and shared memory of the forward
+    (``dx`` False) or dX wgmma kernel on a card of ``n_sm`` SMs."""
     cg, og = c_in // groups, c_out // groups
-    nb = 16 if cg <= 16 else 32
-    oc = 16 if og <= 16 else (32 if og <= 32 else 64)
-    wm = 64 if nb == 16 else 32  # warp tile 64x16 or 32x32
-    n_ochunks = _cdiv(og, oc)
-    upp = max(1, _WARPS // stride)
-    bq = wm * upp
-    ph = phases(k, stride, pad_l)
-    nmax = max(n for _, n, _ in ph)
-    dmin, dmax = min(d for *_, d in ph), max(d for *_, d in ph)
-    win_rows = bq + dmax - dmin + nmax - 1
-    ocp = oc + 8
-    win_bytes = 2 * win_rows * ocp
-    tap_bytes = 2 * stride * nb * ocp  # one tap of every phase
-    mt = max(1, min(nmax, (_SMEM_TARGET - win_bytes) // (2 * tap_bytes)))
-    n_mchunks = _cdiv(nmax, mt)
-    mt = _cdiv(nmax, n_mchunks)
-    in_bytes = win_bytes + 2 * mt * tap_bytes
-    rounds = _cdiv(stride * upp, _WARPS)
-    so_stride = stride * bq + 4
-    out_off = 0 if rounds == 1 else in_bytes
-    smem = max(in_bytes, out_off + 4 * nb * so_stride)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"grouped conv dX tile needs {smem} bytes of shared "
-                         f"memory (K {k}, stride {stride}, Cout/G {og})")
-    return DxPlan(b, c_in, c_out, t_in, t_out, k, stride, pad_l, groups, cg,
-                  og, _cdiv(cg, nb), n_ochunks * oc, n_ochunks, bq, upp,
-                  rounds, nmax, dmin, win_rows, mt, n_mchunks, out_off,
-                  so_stride, nb, oc, wm, _cdiv(t_in, stride * bq), smem)
+    if dx:
+        live = [(n, d) for _, n, d in phases(k, stride, pad_l) if n > 0]
+        e_min = min(d - n + 1 for n, d in live)
+        ke = max(d for _, d in live) - e_min + 1
+        cr, r, co_total, s_win, t_off, p0 = og, stride, cg, 1, e_min, \
+            pad_l - stride * e_min
+        rows, src, dst = _cdiv(t_in, stride), (c_out, t_out), (c_in, t_in)
+    else:
+        ke, cr, r, co_total, s_win, t_off, p0 = k, cg, 1, og, stride, -pad_l, 0
+        rows, src, dst = t_out, (c_in, t_in), (c_out, t_out)
+    if r > _CONV_MAX_N:
+        raise ValueError(f"grouped conv dX takes strides up to {_CONV_MAX_N}")
+    c8 = 2 * _cdiv(cr, 16)
+    co = min(co_total, _CONV_MAX_N // r)
+    nt_w = _pow2_at_least(r * co, 16)
+    n_nt = _cdiv(co_total, co)
+    tap_bytes = c8 * nt_w * 16
+    for mt in ((2, 1) if rows > 64 else (1,)):
+        bm = 64 * mt
+        v = bm + (ke - 1) // s_win
+        out_ld = r * bm + 8
+        slot = _round_up(max(2 * s_win * v * 8 * c8, 2 * co * out_ld), 128)
+        room = _SMEM_LIMIT - _BAR_BYTES - 4 * slot
+        if ke * tap_bytes <= room:
+            resident, ck, n_chunks, w_bytes = 1, ke, 1, ke * tap_bytes
+            break
+        ck = room // (4 * tap_bytes)
+        if ck >= 1:
+            n_chunks = _cdiv(ke, ck)
+            ck = _cdiv(ke, n_chunks)
+            resident, w_bytes = 0, 4 * ck * tap_bytes
+            break
+    else:
+        raise ValueError(f"grouped conv {'dX' if dx else 'forward'} window "
+                         f"needs {4 * slot} bytes of shared memory (K {k}, "
+                         f"stride {stride}, {cr} channels per group)")
+    n_tt = _cdiv(rows, bm)
+    n_tiles = groups * n_nt * b * n_tt
+    win_off = _BAR_BYTES + _round_up(w_bytes, 128)
+    pow2 = s_win & (s_win - 1) == 0
+    if groups * n_nt * ke * tap_bytes >= 2 ** 31:
+        raise ValueError("grouped conv weights too large for the layout")
+    return ConvPlan(
+        b, *src, *dst, groups, cr, c8, s_win, ke, t_off, r, co, co_total,
+        n_nt, mt, n_tt, v, b * n_tt, n_tiles, resident, ck, n_chunks, slot,
+        tap_bytes, _BAR_BYTES, win_off, out_ld, k, stride, p0, int(dx),
+        int(src[1] % 8 == 0 and pow2), s_win.bit_length() - 1 if pow2 else 0,
+        nt_w, min(n_sm, _cdiv(n_tiles, 2)), win_off + 4 * slot)
+
+
+def _layout_weights(w, plan: ConvPlan):
+    """``[Cout, cg, K]`` -> the kernels' slabs ``[G * n_nt, KE, C8, nt_w, 8]``
+    (the map of ``conv_weight_layout_kernel``): element (slab, t, c8, n, e)
+    is reduction channel ``8*c8 + e`` of column ``n = co*R + r``, tap ``t``
+    (forward) or ``P0 + r - stride*t`` (dX, phase ``r``); zero past the
+    channels, columns and taps."""
+    p = plan
+    dev = w.device
+    slab, t, c8, n, e = torch.meshgrid(
+        *(torch.arange(m, device=dev) for m in
+          (p.G * p.n_nt, p.KE, p.C8, p.nt_w, 8)), indexing="ij")
+    g, nt = slab // p.n_nt, slab % p.n_nt
+    cr, co, r = 8 * c8 + e, n // p.R, n % p.R
+    ch = nt * p.CO + co
+    if p.dx:
+        j = p.P0 + r - p.stride * t
+        src = ((g * p.CR + cr) * p.CO_total + ch) * p.K + j
+    else:
+        j = t
+        src = ((g * p.CO_total + ch) * p.CR + cr) * p.K + j
+    ok = ((n < p.R * p.CO) & (cr < p.CR) & (ch < p.CO_total) & (j >= 0)
+          & (j < p.K))
+    flat = w.reshape(-1)
+    vals = flat[torch.where(ok, src, torch.zeros_like(src))]
+    return torch.where(ok, vals, torch.zeros_like(vals))
+
+
+def _stage_window(src, plan: ConvPlan, b: int, g: int, tt: int):
+    """The window slot of one tile, as the window warps stage it: source
+    time ``tt*bm*S + t_off + pv`` of the group's channels, channel-last, at
+    ``[plane = pv mod S][c/8][row = pv div S][c mod 8]``; zeros outside the
+    source and past its channels. Returned as 16-byte units ``[n, 8]``."""
+    p = plan
+    pv = torch.arange(p.S * p.V)
+    c = torch.arange(p.C8 * 8)
+    t = tt * p.bm * p.S + p.t_off + pv
+    ok = (c < p.CR)[:, None] & ((t >= 0) & (t < p.T_src))[None, :]
+    vals = src[b, (g * p.CR + c).clamp(max=p.C_src - 1)][
+        :, t.clamp(0, p.T_src - 1)] * ok
+    win = src.new_zeros(p.S, p.C8, p.V, 8)
+    win[pv % p.S, :, pv // p.S, :] = vals.t().reshape(-1, p.C8, 8)
+    return win.reshape(-1, 8)
+
+
+def _desc_read(buf, start: int, lbo: int, rows: int):
+    """The ``[rows, 16]`` K-major matrix a no-swizzle wgmma descriptor reads
+    from ``buf`` (16-byte units ``[n, 8]``): row ``m``, element ``k`` at unit
+    ``start + m mod 8 + 8*(m div 8) + lbo*(k div 8)`` (SBO 128 bytes)."""
+    m = torch.arange(rows)[:, None]
+    k = torch.arange(16)[None, :]
+    unit = start + m % 8 + 8 * (m // 8) + lbo * (k // 8)
+    return buf[unit, (k % 8).expand(rows, 16)]
+
+
+def emulate_conv(src, w, plan: ConvPlan):
+    """The wgmma kernels' schedule in f32 on the CPU: every CTA's tiles,
+    pipe by pipe; per tile the staged window, each chunk of the laid-out
+    weights as its bulk copy lands, per k16 step, tap and m64 product the
+    descriptors' operands (a tap is a start-row shift), and the epilogue's
+    (channel, phase) columns. Equals :func:`conv_fwd_plain` (forward) or
+    :func:`conv_dx_plain` (dX) up to f32 rounding."""
+    p = plan
+    wp = _layout_weights(w.float(), p).reshape(-1, 8)
+    src = src.float()
+    out = src.new_zeros(p.B, p.C_dst, p.T_dst)
+    tap_units = p.C8 * p.nt_w
+    rows = torch.arange(p.bm)[:, None]
+    cols = torch.arange(p.nt_w)[None, :]
+    co, r = cols // p.R, cols % p.R
+    for cta in range(p.grid):
+        for pipe in (0, 1):
+            for i in p.pipe_tiles(cta, pipe):
+                g, nt, b, tt = p.tile(i)
+                win = _stage_window(src, p, b, g, tt)
+                acc = src.new_zeros(p.bm, p.nt_w)
+                for taps in p.chunks():
+                    first = (g * p.n_nt + nt) * p.KE + taps.start
+                    chunk = wp[first * tap_units:
+                               (first + len(taps)) * tap_units]
+                    for ks in range(p.C8 // 2):
+                        for t in taps:
+                            plane, row = p.tap_rows(t)
+                            bmat = _desc_read(
+                                chunk, ((t - taps.start) * p.C8 + 2 * ks)
+                                * p.nt_w, p.nt_w, p.nt_w)
+                            for h in range(p.mt):
+                                amat = _desc_read(
+                                    win, (plane * p.C8 + 2 * ks) * p.V + row
+                                    + 64 * h, p.V, 64)
+                                acc[64 * h:64 * h + 64] += amat @ bmat.t()
+                ch = nt * p.CO + co
+                tim = p.R * (tt * p.bm + rows) + r
+                ok = ((cols < p.R * p.CO) & (ch < p.CO_total)
+                      & (tim < p.T_dst))
+                ok = ok.expand(p.bm, p.nt_w)
+                out[b, (g * p.CO_total + ch).expand(p.bm, -1)[ok],
+                    tim.expand(-1, p.nt_w)[ok]] = acc[ok]
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -464,32 +557,35 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _fwd_weights(w, plan: FwdPlan):
-    """``[Cout, cg, K]`` -> ``[G, n_otiles, K, ob, cg_pad]``, zero-padded
-    (one copy where no padding is needed, as on the main path)."""
-    g, og, cg, k = plan.G, plan.og, plan.cg, plan.K
-    og_pad = plan.n_otiles * plan.ob
-    wp = w.view(g, og, cg, k)
-    if (og_pad, plan.cg_pad) != (og, cg):
-        wp = F.pad(wp, (0, 0, 0, plan.cg_pad - cg, 0, og_pad - og))
-    return (wp.view(g, plan.n_otiles, plan.ob, plan.cg_pad, k)
-            .permute(0, 1, 4, 2, 3).contiguous())
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _launch_fwd_bf16(x, w, stride: int, pad_l: int, t_out: int, groups: int):
-    b, c_in, t_in = x.shape
-    c_out, _, k = w.shape
-    plan = _plan_fwd(b, c_in, c_out, k, stride, pad_l, t_in, t_out, groups)
-    x = x.contiguous()
-    wp = _fwd_weights(w, plan)
-    y = torch.empty(b, c_out, t_out, device=x.device, dtype=x.dtype)
+def _launch_conv_bf16(dx: bool, src, w, stride: int, pad_l: int, t_in: int,
+                      t_out: int, groups: int):
+    """The forward (``src`` = x) or dX (``src`` = dy): the layout kernel
+    into a scratch slab tensor, then the wgmma kernel."""
+    c_out, cg, k = w.shape
+    dev = src.device
+    plan = _plan_conv(dx, src.shape[0], cg * groups, c_out, k, stride, pad_l,
+                      t_in, t_out, groups,
+                      _sm_count(dev.index if dev.index is not None
+                                else torch.cuda.current_device()))
+    src = src.contiguous()
+    w = w.contiguous()
+    if plan.vec and src.data_ptr() % 16:
+        plan = dataclasses.replace(plan, vec=0)
+    wp = torch.empty(plan.w_numel, device=dev, dtype=torch.bfloat16)
+    out = torch.empty(src.shape[0], plan.C_dst, plan.T_dst, device=dev,
+                      dtype=torch.bfloat16)
     lib = build.load("grouped_conv")
-    err = lib.grouped_conv1d_fwd_bf16(
-        x.data_ptr(), wp.data_ptr(), y.data_ptr(), plan.args, plan.ob,
-        plan.cc, *plan.grid, plan.smem, _stream())
-    build.check(err, "grouped_conv1d_fwd_bf16")
-    return y
-
+    name = "grouped_conv1d_dx_bf16" if dx else "grouped_conv1d_fwd_bf16"
+    err = getattr(lib, name)(
+        src.data_ptr(), w.data_ptr(), wp.data_ptr(), out.data_ptr(),
+        plan.args, plan.nt_w, plan.grid, plan.smem, _stream())
+    build.check(err, name)
+    return out
 
 def _launch_fwd_f32(x, w, stride: int, pad_l: int, t_out: int, groups: int):
     b, c_in, t_in = x.shape
@@ -515,36 +611,6 @@ def _launch_fwd_f32(x, w, stride: int, pad_l: int, t_out: int, groups: int):
         _stream())
     build.check(err, "grouped_conv1d_fwd_f32")
     return y
-
-
-def _dx_weights(w, plan: DxPlan):
-    """``[Cout, cg, K]`` -> ``[G, n_ctiles, s, nmax, nb, og_pad]``,
-    zero-padded: per phase ``r`` its taps ``j0_r + s*m`` in order of ``m``.
-    With K padded to ``s * nmax``, tap ``j`` is ``(m, j mod s)``, and
-    ``j0_r = (r + pad_l) mod s`` is a roll of the residues."""
-    g, og, cg, s = plan.G, plan.og, plan.cg, plan.stride
-    wp = F.pad(w.view(g, og, cg, plan.K).permute(0, 2, 3, 1),
-               (0, plan.og_pad - og, 0, s * plan.nmax - plan.K,
-                0, plan.n_ctiles * plan.nb - cg))
-    wp = wp.view(g, plan.n_ctiles, plan.nb, plan.nmax, s, plan.og_pad)
-    wp = torch.roll(wp, -(plan.pad_l % s), dims=4)
-    return wp.permute(0, 1, 4, 3, 2, 5).contiguous()
-
-
-def _launch_dx_bf16(dy, w, stride: int, pad_l: int, t_in: int, groups: int):
-    b, c_out, t_out = dy.shape
-    _, cg, k = w.shape
-    plan = _plan_dx(b, cg * groups, c_out, k, stride, pad_l, t_in, t_out,
-                    groups)
-    dy = dy.contiguous()
-    wph = _dx_weights(w, plan)
-    dx = torch.empty(b, cg * groups, t_in, device=dy.device, dtype=dy.dtype)
-    lib = build.load("grouped_conv")
-    err = lib.grouped_conv1d_dx_bf16(
-        dy.data_ptr(), wph.data_ptr(), dx.data_ptr(), plan.args, plan.nb,
-        plan.oc, *plan.grid, plan.smem, _stream())
-    build.check(err, "grouped_conv1d_dx_bf16")
-    return dx
 
 
 def _launch_dw_bf16(x, dy, k: int, stride: int, pad_l: int, groups: int):
@@ -611,17 +677,20 @@ def conv_fwd(x, w, stride: int, pad_l: int, pad_r: int, groups: int):
         return conv_fwd_plain(x, w, stride, pad_l, pad_r, groups)
     if x.device.type != "cuda":
         raise RuntimeError(f"grouped conv runs on cuda or cpu, not {x.device}")
-    t_out = out_length(x.shape[-1], w.shape[-1], stride, pad_l, pad_r)
-    launch = _launch_fwd_bf16 if x.dtype == torch.bfloat16 else _launch_fwd_f32
-    y = launch(x, w, stride, pad_l, t_out, groups)
+    t_in = x.shape[-1]
+    t_out = out_length(t_in, w.shape[-1], stride, pad_l, pad_r)
+    if x.dtype == torch.bfloat16:
+        y = _launch_conv_bf16(False, x, w, stride, pad_l, t_in, t_out, groups)
+    else:
+        y = _launch_fwd_f32(x, w, stride, pad_l, t_out, groups)
     conv_fwd.launches += 1
     return y
 
 
 def conv_dx(dy, w, stride: int, pad_l: int, t_in: int, groups: int):
     """Data gradient ``[B, Cin, t_in]`` of ``dy`` ``[B, Cout, Tout]``: the
-    polyphase transposed conv (``conv_dx_kernel``) in bf16, the forward
-    kernel on stride-dilated ``dy`` in f32."""
+    phase-fused ``conv_dx_wgmma_kernel`` in bf16, the forward kernel on
+    stride-dilated ``dy`` in f32."""
     if dy.dtype != w.dtype or dy.device != w.device:
         raise TypeError("dy and w must share dtype and device")
     if dy.dim() != 3 or w.dim() != 3 or dy.shape[1] != w.shape[0] \
@@ -633,7 +702,8 @@ def conv_dx(dy, w, stride: int, pad_l: int, t_in: int, groups: int):
     if dy.device.type != "cuda":
         raise RuntimeError(f"grouped conv runs on cuda or cpu, not {dy.device}")
     if dy.dtype == torch.bfloat16:
-        dx = _launch_dx_bf16(dy, w, stride, pad_l, t_in, groups)
+        dx = _launch_conv_bf16(True, dy, w, stride, pad_l, t_in,
+                               dy.shape[-1], groups)
     else:
         dy_dil, w_t, pl, _ = dilate_flip(dy, w, stride, pad_l, t_in, groups)
         dx = _launch_fwd_f32(dy_dil, w_t, 1, pl, t_in, groups)

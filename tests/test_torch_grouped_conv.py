@@ -2,7 +2,8 @@
 plain versions on the CPU) against the JAX Pallas kernel in interpret mode
 and XLA's grouped conv: values, dX and dW, f32. Also the launch plans and
 the weight layouts of the bf16 tensor-core forward, dX and dW kernels, which
-run only on the card.
+run only on the card, and the wgmma kernels' schedule emulated on the CPU
+(``emulate_conv``) against the plain versions (1e-5 relative, f32).
 
 Tolerances are the JAX file's own (tests/test_pallas_conv.py): rtol/atol
 1e-5 on values, rtol 1e-4 / atol 1e-5 on gradients.
@@ -213,47 +214,88 @@ PLAN_CASES = (
        for s in range(3)])
 
 
+def _tile_coverage(plan):
+    """Checks that the CTAs split the tiles into contiguous ranges, the two
+    pipes of a CTA alternate and differ by at most one tile, and returns
+    counts of the (batch row, group, channel tile, destination time) that
+    the tiles write."""
+    ranges = [plan.cta_tiles(c) for c in range(plan.grid)]
+    assert [t for r in ranges for t in r] == list(range(plan.n_tiles))
+    assert plan.grid <= 132 and all(len(r) for r in ranges)
+    for c, r in enumerate(ranges):
+        p0, p1 = plan.pipe_tiles(c, 0), plan.pipe_tiles(c, 1)
+        assert sorted([*p0, *p1]) == list(r) and 0 <= len(p0) - len(p1) <= 1
+    seen = np.zeros((plan.B, plan.G, plan.n_nt, plan.T_dst), np.int64)
+    for i in range(plan.n_tiles):
+        g, nt, b, tt = plan.tile(i)
+        bb, chans, times = plan.outputs(i)
+        assert bb == b and len(chans) and len(times)
+        assert chans.start == g * plan.CO_total + nt * plan.CO
+        seen[b, g, nt, times.start:times.stop] += 1
+    # The channel tiles of a group cover its destination channels once.
+    per_group = [c for nt in range(plan.n_nt)
+                 for c in range(nt * plan.CO,
+                                min(plan.CO_total, (nt + 1) * plan.CO))]
+    assert per_group == list(range(plan.CO_total))
+    return seen
+
+
+def _check_smem(plan):
+    """The slab (resident) or the four-slot chunk ring (streamed), the four
+    window slots and the mbarriers fit one block's shared memory; a slot
+    holds the window and the output tile."""
+    assert plan.smem <= 227 * 1024
+    w_bytes = (plan.KE if plan.resident else 4 * plan.ck) * plan.tap_bytes
+    assert plan.win_off >= plan.w_off + w_bytes and plan.w_off >= 20 * 8
+    assert plan.smem == plan.win_off + 4 * plan.slot_bytes
+    assert plan.slot_bytes >= 2 * plan.S * plan.V * plan.C8 * 8
+    assert plan.slot_bytes >= 2 * plan.CO * plan.out_ld
+    assert plan.out_ld >= plan.R * plan.bm and plan.out_ld % 8 == 0
+    assert plan.nt_w in (16, 32, 64) and plan.R * plan.CO <= plan.nt_w
+    assert plan.C8 % 2 == 0 and plan.C8 * 8 >= plan.CR
+    # Chunks: every tap once, in order, each within a ring slot.
+    taps = [t for ch in plan.chunks() for t in ch]
+    assert taps == list(range(plan.KE))
+    assert all(len(ch) <= plan.ck for ch in plan.chunks())
+    assert plan.resident == (plan.n_chunks == 1 and plan.ck == plan.KE) \
+        or not plan.resident
+    # Each tap's rows, shifted by the tile's rows, lie inside the window.
+    for t in range(plan.KE):
+        plane, row = plan.tap_rows(t)
+        assert plane + plan.S * row == t and 0 <= plane < plan.S
+        assert 0 <= row and row + plan.bm <= plan.V
+
+
 @pytest.mark.parametrize("case", PLAN_CASES)
 def test_launch_plans_cover_the_work_once(case):
-    """``_plan_dx`` / ``_plan_dw`` fit shared memory, and split the work so
-    that every piece is done exactly once: dX by (time tile, group, channel
-    tile, batch row) blocks, (phase, rows) warp units and (o-chunk, taps)
-    weight stages; dW by (tap tile, group x channel tiles) blocks per chunk
-    and row chunks that cover every (batch row, time step) once."""
+    """``_plan_conv`` for dX and ``_plan_dw`` fit shared memory and split
+    the work so that every piece is done exactly once: dX by tiles of
+    (channel tile, batch row, time tile) over contiguous CTA ranges and two
+    pipes, each (batch row, input position) of each channel tile once;
+    every (phase, tap) in one column and one dy offset that the window
+    holds; dW by (tap tile, group x channel tiles) blocks per chunk and row
+    chunks that cover every (batch row, time step) once."""
     b, t, cin, cout, k, stride, pad, groups = case
     t_out = gc.out_length(t, k, stride, pad, pad)
     cg, og = cin // groups, cout // groups
 
-    px = gc._plan_dx(b, cin, cout, k, stride, pad, t, t_out, groups)
-    assert px.smem <= 227 * 1024
-    # Blocks: time tiles cover [0, T), (group, channel tile) cover every
-    # input channel, z every batch row.
-    gx, gy, gz = px.grid
-    assert gz == b and gx * px.stride * px.bq >= t > (gx - 1) * px.stride * px.bq
-    chans = [g * cg + ct * px.nb + c for g in range(groups)
-             for ct in range(px.n_ctiles) for c in range(px.nb)
-             if ct * px.nb + c < cg]
-    assert sorted(chans) == list(range(cin)) and gy == groups * px.n_ctiles
-    # Warp units: each (phase, row) of the tile exactly once.
-    rows = [(r, q0 + q) for _, r, q0 in px.units() for q in range(px.wm)]
-    assert sorted(rows) == [(r, q) for r in range(stride)
-                            for q in range(px.bq)]
-    # Weight stages: each (output channel, tap) of each phase exactly once;
-    # each stage's taps fit the ring and the window holds their dy rows.
-    seen = []
-    for oc0, taps in px.tap_chunks():
-        assert len(taps) <= px.mt
-        for r, (j0, n, d) in enumerate(gc.phases(k, stride, pad)):
-            seen += [(r, j0 + stride * m, o) for m in taps if m < n
-                     for o in range(oc0, min(og, oc0 + px.oc))]
-            for m in (m for m in taps if m < n):
-                lo = d - px.dmin + px.nmax - 1 - m
-                assert 0 <= lo and lo + px.bq <= px.win_rows
-    want = [(r, j0 + stride * m, o)
-            for r, (j0, n, _) in enumerate(gc.phases(k, stride, pad))
-            for m in range(n) for o in range(og)]
-    assert sorted(seen) == sorted(want)
-    assert sorted(j for _, j, o in want if o == 0) == list(range(k))
+    px = gc._plan_conv(True, b, cin, cout, k, stride, pad, t, t_out, groups)
+    _check_smem(px)
+    assert (px.S, px.R, px.CR, px.CO_total) == (1, stride, og, cg)
+    assert (px.C_src, px.T_src, px.C_dst, px.T_dst) == (cout, t_out, cin, t)
+    assert px.n_tt == gc._cdiv(gc._cdiv(t, stride), px.bm)
+    assert (_tile_coverage(px) == 1).all()
+    # Phase r's tap j0 + s*m reads dy[q + d - m]: offset index
+    # d - m - t_off in [0, KE), and the layout's tap P0 + r - s*index is j.
+    slots = []
+    for r, (j0, n, d) in enumerate(gc.phases(k, stride, pad)):
+        for m in range(n):
+            e = d - m - px.t_off
+            assert 0 <= e < px.KE
+            assert px.P0 + r - stride * e == j0 + stride * m
+            slots.append((r, j0 + stride * m))
+    assert sorted(j for _, j in slots) == list(range(k))
+    assert len(set(slots)) == len(slots)
 
     pw = gc._plan_dw(b, cin, cout, k, stride, pad, t, t_out, groups)
     assert pw.smem <= 227 * 1024
@@ -271,80 +313,129 @@ def test_launch_plans_cover_the_work_once(case):
     assert rows == [(bb, u) for bb in range(b) for u in range(t_out)]
 
 
+def _layout_ids(plan, shape):
+    """The layout of a weight whose elements are their own flat index + 1
+    (f64, exact), and the count of each index in it."""
+    ids = torch.arange(1, int(np.prod(shape)) + 1, dtype=torch.float64)
+    got = gc._layout_weights(ids.view(shape), plan)
+    counts = torch.bincount(got.reshape(-1).long(),
+                            minlength=ids.numel() + 1)
+    return got, counts
+
+
 @pytest.mark.parametrize("case", [PLAN_CASES[3], CASES[2], CASES[5],
                                   K_BELOW_STRIDE])
 def test_dx_weight_layout(case):
-    """``_dx_weights`` puts ``w[g*og + o, c, j0 + s*m]`` at
-    ``[g, c // nb, r, m, c % nb, o]`` and zeros everywhere else."""
+    """``_layout_weights`` for dX (phase-fused) puts ``w[g*og + o, c,
+    j0_r + s*m]`` at ``[g*n_nt + c // CO, d_r - m - t_off, o // 8,
+    (c % CO)*s + r, o % 8]``: each (phase, tap, o, c) exactly once, zeros
+    everywhere else."""
     b, t, cin, cout, k, stride, pad, groups = case
-    plan = gc._plan_dx(b, cin, cout, k, stride, pad, t,
-                       gc.out_length(t, k, stride, pad, pad), groups)
-    w = torch.randn(cout, cin // groups, k, generator=torch.Generator()
-                    .manual_seed(0))
-    got = gc._dx_weights(w, plan).view(
-        groups, plan.n_ctiles, stride, plan.nmax, plan.nb, plan.og_pad)
+    plan = gc._plan_conv(True, b, cin, cout, k, stride, pad, t,
+                         gc.out_length(t, k, stride, pad, pad), groups)
+    og, cg = plan.CR, plan.CO_total
+    w = torch.randn(cout, cg, k, generator=torch.Generator().manual_seed(0))
+    got = gc._layout_weights(w, plan)
+    assert got.shape == (groups * plan.n_nt, plan.KE, plan.C8, plan.nt_w, 8)
     want = torch.zeros_like(got)
-    for r, (j0, n, _) in enumerate(gc.phases(k, stride, pad)):
+    for r, (j0, n, d) in enumerate(gc.phases(k, stride, pad)):
         for m in range(n):
-            for c in range(plan.cg):
-                want[:, c // plan.nb, r, m, c % plan.nb, :plan.og] = (
-                    w[:, c, j0 + stride * m].view(groups, plan.og))
+            for c in range(cg):
+                nt, co = divmod(c, plan.CO)
+                for o in range(og):
+                    want[nt::plan.n_nt, d - m - plan.t_off, o // 8,
+                         co * stride + r, o % 8] = (
+                        w.view(groups, og, cg, k)[:, o, c, j0 + stride * m])
     assert torch.equal(got, want)
+    _, counts = _layout_ids(plan, (cout, cg, k))
+    assert (counts[1:] == 1).all()
+    assert counts[0] == got.numel() - w.numel()
 
 
 @pytest.mark.parametrize("case", PLAN_CASES)
 def test_forward_plan_covers_the_work_once(case):
-    """``_plan_fwd`` fits shared memory; its (time tile, group x channel
-    tile, batch row) blocks cover every output once; its (c-chunk, taps)
-    weight stages cover every (input channel, tap) of the reduction once;
-    and each tap's window rows lie inside the staged window and read
-    ``x[u*s + j - pad_l]``."""
+    """``_plan_conv`` for the forward fits shared memory; its CTAs' tiles
+    write every (batch row, output channel, output time step) once; its
+    chunks cover every tap once, and tap ``j`` of output row ``u`` reads
+    window position ``j + s*i``, that is ``x[u*s + j - pad_l]``, inside the
+    staged window."""
     b, t, cin, cout, k, stride, pad, groups = case
     t_out = gc.out_length(t, k, stride, pad, pad)
     cg, og = cin // groups, cout // groups
 
-    p = gc._plan_fwd(b, cin, cout, k, stride, pad, t, t_out, groups)
-    assert p.smem <= 227 * 1024
-    gx, gy, gz = p.grid
-    assert gz == b and gy == groups * p.n_otiles
-    # Blocks do the same for every batch row: each (output channel, time
-    # step) once.
-    seen = np.zeros((cout, t_out), np.int64)
-    for bx in range(gx):
-        for by in range(gy):
-            g, os_, us = p.block(bx, by)
-            if len(os_) and len(us):
-                seen[g * og + os_.start:g * og + os_.stop,
-                     us.start:us.stop] += 1
-    assert (seen == 1).all()
-    # Weight stages: each (input channel, tap) once, within the ring.
-    staged = np.zeros((cg, k), np.int64)
-    for c0, taps in p.tap_chunks():
-        assert len(taps) <= p.mt and c0 < p.cg_pad
-        staged[c0:min(cg, c0 + p.cc), taps.start:taps.stop] += 1
-        for j in taps:
+    p = gc._plan_conv(False, b, cin, cout, k, stride, pad, t, t_out, groups)
+    _check_smem(p)
+    assert (p.S, p.R, p.KE, p.CR, p.CO_total) == (stride, 1, k, cg, og)
+    assert (p.C_src, p.T_src, p.C_dst, p.T_dst) == (cin, t, cout, t_out)
+    assert p.t_off == -pad and p.n_tt == gc._cdiv(t_out, p.bm)
+    assert (_tile_coverage(p) == 1).all()
+    for tt in range(p.n_tt):
+        for j in range(k):
             plane, row = p.tap_rows(j)
-            # window position plane + s*(row + i) is x[(u0 + i)*s + j - pad_l]
-            assert plane + stride * row == j and 0 <= plane < stride
-            assert 0 <= row and row + p.bm <= p.V
-    assert (staged == 1).all()
+            for i in (0, p.bm - 1):
+                pos = plane + stride * (row + i)
+                assert tt * p.bm * stride + p.t_off + pos \
+                    == (tt * p.bm + i) * stride + j - pad
 
 
 @pytest.mark.parametrize("case", [PLAN_CASES[3], CASES[2], CASES[5],
                                   K_BELOW_STRIDE])
 def test_fwd_weight_layout(case):
-    """``_fwd_weights`` puts ``w[g*og + o, c, j]`` at
-    ``[g, o // ob, j, o % ob, c]`` and zeros everywhere else."""
+    """``_layout_weights`` for the forward puts ``w[g*og + o, c, j]`` at
+    ``[g*n_nt + o // CO, j, c // 8, o % CO, c % 8]``: each element once,
+    zeros everywhere else."""
     b, t, cin, cout, k, stride, pad, groups = case
-    plan = gc._plan_fwd(b, cin, cout, k, stride, pad, t,
-                        gc.out_length(t, k, stride, pad, pad), groups)
-    w = torch.randn(cout, cin // groups, k, generator=torch.Generator()
-                    .manual_seed(0))
-    got = gc._fwd_weights(w, plan).view(
-        groups, plan.n_otiles, k, plan.ob, plan.cg_pad)
+    plan = gc._plan_conv(False, b, cin, cout, k, stride, pad, t,
+                         gc.out_length(t, k, stride, pad, pad), groups)
+    cg, og = plan.CR, plan.CO_total
+    w = torch.randn(cout, cg, k, generator=torch.Generator().manual_seed(0))
+    got = gc._layout_weights(w, plan)
+    assert got.shape == (groups * plan.n_nt, k, plan.C8, plan.nt_w, 8)
     want = torch.zeros_like(got)
-    wg = w.view(groups, plan.og, plan.cg, k)
-    for o in range(plan.og):
-        want[:, o // plan.ob, :, o % plan.ob, :plan.cg] = (
-            wg[:, o].transpose(1, 2))
+    wg = w.view(groups, og, cg, k)
+    for o in range(og):
+        nt, co = divmod(o, plan.CO)
+        for c in range(cg):
+            want[nt::plan.n_nt, :, c // 8, co, c % 8] = wg[:, o, c, :]
     assert torch.equal(got, want)
+    _, counts = _layout_ids(plan, (cout, cg, k))
+    assert (counts[1:] == 1).all()
+    assert counts[0] == got.numel() - w.numel()
+
+
+#: The six main-path geometries cut to B 2, the CASES, K < stride, and two
+#: full scale discriminator layers whose slabs do not fit (streamed), cut
+#: to short lengths.
+EMULATED = ([(2, *case[1:]) for case in PLAN_CASES[:6]] + CASES
+            + [K_BELOW_STRIDE, (1, 64, 1024, 1024, 41, 1, 20, 16),
+               (1, 128, 512, 1024, 41, 4, 20, 16)])
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dx"])
+@pytest.mark.parametrize("case", EMULATED)
+def test_schedule_emulation_matches_plain(case, kind):
+    """The wgmma kernels' own index arithmetic (CTA ranges, pipes, window
+    planes and rows, descriptor row shifts, chunks, fused-phase columns),
+    run in f32 on the CPU, equals the plain forward or dX within 1e-5
+    relative."""
+    b, t, cin, cout, k, stride, pad, groups = case
+    t_out = gc.out_length(t, k, stride, pad, pad)
+    rng = np.random.default_rng(sum(case))
+    w = torch.from_numpy(rng.normal(size=(cout, cin // groups, k))
+                         .astype(np.float32))
+    plan = gc._plan_conv(kind == "dx", b, cin, cout, k, stride, pad, t,
+                         t_out, groups)
+    if kind == "fwd":
+        x = torch.from_numpy(rng.normal(size=(b, cin, t)).astype(np.float32))
+        got, want = (gc.emulate_conv(x, w, plan),
+                     gc.conv_fwd_plain(x, w, stride, pad, pad, groups))
+    else:
+        dy = torch.from_numpy(rng.normal(size=(b, cout, t_out))
+                              .astype(np.float32))
+        got, want = (gc.emulate_conv(dy, w, plan),
+                     gc.conv_dx_plain(dy, w, stride, pad, t, groups))
+    assert got.shape == want.shape
+    err = (got - want).abs().max() / want.abs().max()
+    assert err <= 1e-5, err
+    if case[4] == 41 and case[5] in (1, 4) and cin >= 512:
+        assert not plan.resident or kind == "dx"
