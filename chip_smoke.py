@@ -16,7 +16,8 @@ Phases, each fatal on failure:
    version on the card, at the shapes of the main path: the grouped conv's
    forward and dX (bf16: ``conv_fwd_wgmma_kernel``,
    ``conv_dx_wgmma_kernel``, each after ``conv_weight_layout_kernel``) and
-   dW at all six (layer,
+   dW (bf16: ``conv_dw_wgmma_kernel``, with each geometry's cluster size,
+   CTA count and the clusters the card holds at once) at all six (layer,
    scale) geometries of the small scale discriminators on the paired
    2B = 64 batch, in f32 (TF32 off) and bf16; forward, dX and dW also at
    the edge geometries of ``tests/test_torch_grouped_conv.py`` (strides
@@ -381,6 +382,17 @@ def check_grouped_conv(torch, gc, F):
                         row.update(ms=cuda_time(kern), plain_ms=cuda_time(plain),
                                    library_ms=cuda_time(lib), bound_ms=b_ms,
                                    bound_by=b_by)
+                        if name == "grouped_conv_dw":
+                            # conv_dw_wgmma_kernel's launch: clusters of
+                            # C CTAs, and how many the card holds at once.
+                            plan = gc._plan_dw_for(x, dy, k, s, pad, g)
+                            row.update(cluster=plan.C, ctas=plan.grid,
+                                       clusters=plan.n_tiles,
+                                       clusters_held=gc._cluster_table(
+                                           torch.cuda.current_device())[
+                                               plan.C - 1],
+                                       units_per_warpgroup=plan.UW,
+                                       wgmma_n=plan.nt_w)
                         agg = summary.setdefault(name, {
                             "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                             "library_ms": 0.0, "bound_ms": 0.0,
@@ -399,7 +411,13 @@ def check_grouped_conv(torch, gc, F):
                              f"{100 * row['bound_ms'] / row['ms']:.1f} % of "
                              f"the bound, kernel/library "
                              f"{row['ms'] / row['library_ms']:.3f}"
-                             if "ms" in row else ""), flush=True)
+                             if "ms" in row else "")
+                          + (f"; {row['clusters']} clusters of "
+                             f"{row['cluster']} CTAs = {row['ctas']} CTAs "
+                             f"({row['clusters_held']} such clusters held "
+                             f"at once), {row['units_per_warpgroup']} units "
+                             f"of N {row['wgmma_n']} a warpgroup"
+                             if "cluster" in row else ""), flush=True)
                     if not ok:
                         raise SystemExit(f"{name} disagrees with its plain "
                                          f"version: {row}")
@@ -4520,7 +4538,7 @@ def main() -> int:
 
     source = {"grouped_conv_fwd": "ste_gan_torch/csrc/grouped_conv.cu",
               "grouped_conv_dx": "ste_gan_torch/csrc/grouped_conv.cu",
-              "grouped_conv_dw": "ste_gan_torch/csrc/grouped_conv.cu",
+              "grouped_conv_dw": "ste_gan_torch/csrc/grouped_conv_dw.cu",
               "fused_adamw": "ste_gan_torch/csrc/adamw.cu"}
     replaces = {"grouped_conv_fwd": "ste_gan_tpu/ops/pallas_conv.py:147",
                 "grouped_conv_dx": "ste_gan_tpu/ops/pallas_conv.py:282",
@@ -4531,8 +4549,7 @@ def main() -> int:
                                         "conv_fwd_wgmma_kernel",
                     "grouped_conv_dx": "conv_weight_layout_kernel + "
                                        "conv_dx_wgmma_kernel",
-                    "grouped_conv_dw": "conv_dw_partial_kernel + "
-                                       "conv_dw_reduce_kernel",
+                    "grouped_conv_dw": "conv_dw_wgmma_kernel",
                     "fused_adamw": "adamw_multi_tensor_kernel"}
     summaries = dict(conv_summary, fused_adamw=adamw_summary)
     dist_report = report["dist"]

@@ -1,5 +1,7 @@
 // Grouped 1-D convolution for Hopper (sm_90a): forward, data gradient (dX)
-// and weight gradient (dW), CUDA C++ behind a plain C interface.
+// and the f32 weight gradient (dW), CUDA C++ behind a plain C interface; the
+// bf16 dW is grouped_conv_dw.cu, and the device helpers both use are
+// hopper.cuh.
 //
 // Replaces the Pallas TPU kernels of ste_gan_tpu/ops/pallas_conv.py:
 //   * conv_fwd_wgmma_kernel <- _fwd_kernel (:147-155) via _run_fwd
@@ -14,16 +16,18 @@
 //                           (:282-304) does: the forward at stride 1 on
 //                           stride-dilated dy with tap-flipped,
 //                           in/out-transposed weights.
-//   * conv_dw_partial_kernel + conv_dw_reduce_kernel
-//                        <- _dw_kernel (:158-174) via _run_dw (:211-234),
-//                           bf16, mma.sync.m16n8k16 with ldmatrix;
-//                           conv_dw_partial_f32_kernel is the f32 route, on
-//                           the CUDA cores.
+//   * conv_dw_partial_f32_kernel + conv_dw_reduce_kernel
+//                        <- _dw_kernel (:158-174) via _run_dw (:211-234) in
+//                           f32, on the CUDA cores (bf16: grouped_conv_dw.cu
+//                           conv_dw_wgmma_kernel, one launch, wgmma over the
+//                           same channel-last window, rows split over a
+//                           thread-block cluster, partial sums added on chip).
 //
 // Layout is PyTorch's: x [B, Cin, Tin], y and dy [B, Cout, Tout]; output
 // channels form G consecutive blocks of og = Cout/G, input channels blocks
 // of cg = Cin/G. dW is written as [Cout, cg, K]. Every sum is accumulated in
-// f32 and the result is written in the operand type; no sum uses atomics.
+// f32 and the result is written in the operand type; no sum uses atomics,
+// and every sum is taken in a fixed order (two calls agree bit for bit).
 // The f32 kernels stay exact f32 on the CUDA cores (no TF32).
 //
 // What bounds them: at the scale discriminators' shapes (K 37, cg 16-32,
@@ -31,75 +35,13 @@
 // forward, dX and dW are bound by arithmetic, and in bf16 by the tensor-core
 // rate. Each section below says what its design does about it.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int kThreads = 256;  // 8 warps in the f32 and dW kernels
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 256;  // 8 warps in the f32 kernels
 constexpr int kTM = 4;  // time rows per thread (f32 forward)
 constexpr int kTN = 4;  // output channels per thread (f32 forward)
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// ---------------------------------------------------------------------------
-// mma.sync primitives of the dW kernel (sm_80+ PTX, run on sm_90a)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 b16 matrices; lane l gives the row address of matrix l / 8.
-__device__ __forceinline__ void ldsm_x4(const bf16* p, uint32_t& r0, uint32_t& r1,
-                                        uint32_t& r2, uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(const bf16* p, uint32_t& r0, uint32_t& r1,
-                                              uint32_t& r2, uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// d += a (16x16, row) * b (16x8, col); bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack2(unsigned short lo, unsigned short hi) {
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
-
-// Gathers src[0], src[ld], ..., src[7 * ld] (bf16 bits; the first n_ok of
-// them, zeros after) into one 16-byte shared-memory store: 8 channels of
-// one time step, transposed to channel-last on the way in.
-__device__ __forceinline__ void store8(bf16* dst, const unsigned short* src, int ld,
-                                       int n_ok) {
-  unsigned short v[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) v[e] = e < n_ok ? src[(size_t)e * ld] : 0;
-  *reinterpret_cast<uint4*>(dst) = make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]),
-                                              pack2(v[4], v[5]), pack2(v[6], v[7]));
-}
 
 // ---------------------------------------------------------------------------
 // Forward in f32, CUDA cores. Block = (time tile of BM outputs, group x
@@ -289,37 +231,14 @@ constexpr int kWinThreads = 64;    // window threads per pipe
 constexpr int kSlots = 2;          // window slots per pipe
 constexpr uint32_t kBulkPiece = 32768;
 
-// ---- mbarriers, bulk copies, proxy fences, wgmma (sm_90a PTX) ----
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
+// ---- bulk copies and wgmma from shared memory (sm_90a PTX; the rest in
+// hopper.cuh) ----
 
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
                    smem_addr(bar)),
                "r"(bytes)
                : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
 }
 
 // global -> shared in pieces, completing `bytes` (a multiple of 16) on `bar`.
@@ -333,40 +252,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
         "l"(static_cast<const char*>(src) + off), "r"(n), "r"(smem_addr(bar))
         : "memory");
   }
-}
-
-// Makes this thread's shared-memory stores visible to wgmma (async proxy).
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// A K-major shared-memory matrix without swizzle: start, LBO (the next 8
-// K-elements) and SBO (the next 8 rows), all in bytes.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d[64 x N] += A[64 x 16] * B[N x 16]^T, bf16 operands from shared memory, f32
@@ -549,7 +434,6 @@ __device__ __forceinline__ void conv_wgmma_body(const bf16* __restrict__ src,
     // plane pv mod S, as one 16-byte row of 8 channels. ----
     const int pipe = (warp - 8) >> 1, ptid = tid - 256 - pipe * kWinThreads;
     const unsigned short* srch = reinterpret_cast<const unsigned short*>(src);
-    const int sv = p.S * p.V;
     int s_idx = 0, s_round = 0;  // ring slot and the times the ring went round
     for (int i = lo + pipe; i < hi; i += 2) {
       const ConvTile t = conv_tile(p, i);
@@ -558,88 +442,8 @@ __device__ __forceinline__ void conv_wgmma_body(const bf16* __restrict__ src,
       bf16* win = reinterpret_cast<bf16*>(conv_smem + p.win_off + (size_t)slot * p.slot_bytes);
       const unsigned short* sb = srch + ((size_t)t.b * p.C_src + (size_t)t.g * p.CR) * p.T_src;
       const int t0 = t.tt * bm * p.S + p.t_off;
-      if (p.vec) {
-        // 16-byte loads of 8 time steps of one channel (T_src % 8 == 0, so
-        // an aligned 8-step chunk lies wholly inside or outside the source),
-        // transposed in registers: unit (c8, k) covers source times
-        // T0 + 8k.. of channels 8*c8.., two units in flight per thread.
-        const int T0 = t0 & ~7, nch = (((t0 + sv + 7) & ~7) - T0) >> 3;
-        const int n_units = nch * p.C8;
-        for (int u0 = ptid; u0 < n_units; u0 += 2 * kWinThreads) {
-          uint4 v[2][8];
-          int c8s[2], tks[2];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int u = u0 + h * kWinThreads;
-            const int c8 = u / nch, tk = T0 + 8 * (u - c8 * nch);
-            c8s[h] = c8;
-            tks[h] = tk;
-            const int n_ok = (u < n_units && tk >= 0 && tk < p.T_src) ? p.CR - c8 * 8 : 0;
-            const unsigned short* s8 = sb + (size_t)(c8 * 8) * p.T_src + tk;
-#pragma unroll
-            for (int e = 0; e < 8; ++e)
-              v[h][e] = e < n_ok ? __ldg(reinterpret_cast<const uint4*>(s8 + (size_t)e * p.T_src))
-                                 : make_uint4(0, 0, 0, 0);
-          }
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            if (u0 + h * kWinThreads >= n_units) continue;
-            const int pv0 = tks[h] - t0;
-#pragma unroll
-            for (int q = 0; q < 8; ++q) {
-              const int pv = pv0 + q;
-              if (pv < 0 || pv >= sv) continue;
-              const uint32_t sel = (q & 1) ? 0x7632u : 0x5410u;
-              uint32_t wd[4];
-#pragma unroll
-              for (int c = 0; c < 4; ++c) {
-                const uint4& a = v[h][2 * c];
-                const uint4& b = v[h][2 * c + 1];
-                const uint32_t wa = (q >> 1) == 0 ? a.x : (q >> 1) == 1 ? a.y : (q >> 1) == 2 ? a.z : a.w;
-                const uint32_t wb2 = (q >> 1) == 0 ? b.x : (q >> 1) == 1 ? b.y : (q >> 1) == 2 ? b.z : b.w;
-                wd[c] = __byte_perm(wa, wb2, sel);
-              }
-              const int plane = pv & (p.S - 1), row = pv >> p.s_shift;
-              *reinterpret_cast<uint4*>(win + ((size_t)(plane * p.C8 + c8s[h]) * p.V + row) * 8) =
-                  make_uint4(wd[0], wd[1], wd[2], wd[3]);
-            }
-          }
-        }
-      } else {
-        // Any length: eight 2-byte loads per 16-byte row, four rows' loads
-        // in flight per thread.
-        const int n_pieces = sv * p.C8;
-        for (int base = ptid; base < n_pieces; base += 4 * kWinThreads) {
-          uint4 v[4];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int idx = base + u * kWinThreads;
-            unsigned short e8[8];
-#pragma unroll
-            for (int e = 0; e < 8; ++e) e8[e] = 0;
-            if (idx < n_pieces) {
-              const int c8 = idx / sv, tt = t0 + idx - c8 * sv;
-              const int n_ok = (tt >= 0 && tt < p.T_src) ? p.CR - c8 * 8 : 0;
-              const unsigned short* s8 = sb + (size_t)(c8 * 8) * p.T_src + tt;
-#pragma unroll
-              for (int e = 0; e < 8; ++e)
-                if (e < n_ok) e8[e] = __ldg(s8 + (size_t)e * p.T_src);
-            }
-            v[u] = make_uint4(pack2(e8[0], e8[1]), pack2(e8[2], e8[3]), pack2(e8[4], e8[5]),
-                              pack2(e8[6], e8[7]));
-          }
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int idx = base + u * kWinThreads;
-            if (idx < n_pieces) {
-              const int c8 = idx / sv, pv = idx - c8 * sv;
-              const int plane = pv % p.S, row = pv / p.S;
-              *reinterpret_cast<uint4*>(win + ((size_t)(plane * p.C8 + c8) * p.V + row) * 8) =
-                  v[u];
-            }
-          }
-        }
-      }
+      stage_window(win, sb, p.T_src, p.CR, p.C8, p.V, p.S, p.s_shift, p.vec, t0, ptid,
+                   kWinThreads);
       fence_async_smem();
       mbar_arrive(win_full + slot);
       if (++s_idx == kSlots) {
@@ -832,156 +636,12 @@ __global__ void conv_weight_layout_kernel(const bf16* __restrict__ w, bf16* __re
 }
 
 // ---------------------------------------------------------------------------
-// dW in bf16: an implicit GEMM over rows on the tensor cores.
-//
-// dw[o, c, j] = sum_{b, u} dy[b, o, u] * x[b, c, u*s + j - pad_l]: per group
-// a GEMM of M = og, N = (tap, c), reduction over the B x Tout rows.
-//
-// What bounds it: arithmetic again (104 GFLOP per paired pass). The design:
-//   * Block = (tile of kt taps; group x tile of OB output channels x tile of
-//     CB input channels; chunk of row tiles). A row tile is kBT time steps of
-//     one batch row, so the x elements all its taps need are one contiguous
-//     span, x[u0*s + k0 - pad_l ...]. That span is staged once per row tile,
-//     channel-last and split by phase ([t mod s][t div s][c], rows padded by
-//     8): tap j of row u is then row u + (j - k0) div s of plane
-//     (j - k0) mod s, consecutive rows are consecutive u, and an
-//     ldmatrix.trans of 8 rows hits 8 distinct bank groups. No element is
-//     gathered with a division, and no x element is loaded once per tap.
-//   * dy is staged as [o][u] (time-contiguous, as it lies), the A operand
-//     of a row-major MMA.
-//   * kBT = 128 rows between barriers; each warp owns all OB rows and 32
-//     columns (one tap of 32 channels, or two taps of 16): per 16 rows it
-//     loads MW + 2 fragments and issues 4*MW mma.sync.
-//   * Determinism: each block sums its fixed chunk of row tiles into its own
-//     f32 partial slab [Cout, K, cg]; conv_dw_reduce_kernel adds the slabs in
-//     chunk order. No atomics.
-// ---------------------------------------------------------------------------
-
-constexpr int kBT = 128;  // rows (time steps of one batch row) per staged tile
-
-struct DwParams {  // field order = _DW_FIELDS in ops/grouped_conv.py
-  int B, Cin, Cout, Tin, Tout, K, stride, pad_l, G;
-  int cg, og, n_otiles, n_ctiles, kt, tiles_per_b, n_rtiles, tiles_per_chunk, V;
-};
-
-template <int MW, int CB>
-__global__ void __launch_bounds__(kThreads, 2)
-conv_dw_partial_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-                       float* __restrict__ part, const DwParams p) {
-  constexpr int OB = MW * 16, XCP = CB + 8, DYP = kBT + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* dys = reinterpret_cast<bf16*>(smem_raw);  // [OB][DYP]
-  bf16* xw = dys + OB * DYP;                        // [s][V][XCP]
-  const int s = p.stride;
-  const int k0 = blockIdx.x * p.kt;
-  const int ct = blockIdx.y % p.n_ctiles;
-  const int ot = (blockIdx.y / p.n_ctiles) % p.n_otiles;
-  const int g = blockIdx.y / (p.n_ctiles * p.n_otiles);
-  const int chunk = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rt_begin = chunk * p.tiles_per_chunk;
-  const int rt_end = min(p.n_rtiles, rt_begin + p.tiles_per_chunk);
-  const unsigned short* xh = reinterpret_cast<const unsigned short*>(x);
-  const unsigned short* dyh = reinterpret_cast<const unsigned short*>(dy);
-
-  // The warp's two column pairs (16 columns each): tap, and where its row
-  // u = 0 lies in the x window.
-  bool pair_ok[2];
-  int pair_off[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int col0 = warp * 32 + half * 16;
-    const int jj = col0 / CB;
-    pair_ok[half] = k0 + jj < p.K;
-    pair_off[half] = ((jj % s) * p.V + jj / s) * XCP + col0 % CB;
-  }
-  float acc[MW][4][4];
-#pragma unroll
-  for (int i = 0; i < MW; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int rt = rt_begin; rt < rt_end; ++rt) {
-    const int bb = rt / p.tiles_per_b;
-    const int u0 = (rt - bb * p.tiles_per_b) * kBT;
-    __syncthreads();  // the previous tile is consumed
-    // Each thread stages two adjacent rows u of every 4th output channel,
-    // then the channels of its x window rows; the loops are unrolled so that
-    // loads can be issued ahead of the stores.
-    const unsigned short* dyb =
-        dyh + ((size_t)bb * p.Cout + (size_t)g * p.og + ot * OB) * p.Tout;
-    {
-      const int uu = 2 * (threadIdx.x % (kBT / 2)), o0 = threadIdx.x / (kBT / 2);
-      const int u = u0 + uu;
-#pragma unroll
-      for (int i = 0; i < OB / 4; ++i) {
-        const int o = o0 + 4 * i;
-        const bool ok = ot * OB + o < p.og;
-        const unsigned short lo = (ok && u < p.Tout) ? dyb[(size_t)o * p.Tout + u] : 0;
-        const unsigned short hi =
-            (ok && u + 1 < p.Tout) ? dyb[(size_t)o * p.Tout + u + 1] : 0;
-        *reinterpret_cast<uint32_t*>(dys + o * DYP + uu) = pack2(lo, hi);
-      }
-    }
-    const int t_base = u0 * s + k0 - p.pad_l;
-    const unsigned short* xb =
-        xh + ((size_t)bb * p.Cin + (size_t)g * p.cg + ct * CB) * p.Tin;
-    for (int pv = threadIdx.x; pv < s * p.V; pv += kThreads) {
-      const int t = t_base + pv;
-      const bool in = t >= 0 && t < p.Tin;
-      bf16* dst = xw + ((pv % s) * p.V + pv / s) * XCP;
-#pragma unroll
-      for (int c8 = 0; c8 < CB / 8; ++c8)
-        store8(dst + c8 * 8, xb + (size_t)(c8 * 8) * p.Tin + t, p.Tin,
-               in ? p.cg - (ct * CB + c8 * 8) : 0);
-    }
-    __syncthreads();
-    const bf16* arow = dys + (lane & 15) * DYP + (lane >> 4) * 8;
-    const int brow = ((lane & 7) + ((lane >> 3) & 1) * 8) * XCP + (lane >> 4) * 8;
-#pragma unroll 2
-    for (int ks = 0; ks < kBT / 16; ++ks) {
-      uint32_t a[MW][4];
-#pragma unroll
-      for (int i = 0; i < MW; ++i)
-        ldsm_x4(arow + i * 16 * DYP + ks * 16, a[i][0], a[i][1], a[i][2], a[i][3]);
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        if (!pair_ok[half]) continue;
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4_trans(xw + pair_off[half] + ks * 16 * XCP + brow, b0, b1, b2, b3);
-#pragma unroll
-        for (int i = 0; i < MW; ++i) {
-          mma_bf16(acc[i][2 * half], a[i], b0, b1);
-          mma_bf16(acc[i][2 * half + 1], a[i], b2, b3);
-        }
-      }
-    }
-  }
-
-  float* pc = part + (size_t)chunk * p.Cout * p.K * p.cg;
-#pragma unroll
-  for (int i = 0; i < MW; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int o = ot * OB + i * 16 + (lane >> 2) + (e >> 1) * 8;
-        const int col = warp * 32 + j * 8 + 2 * (lane & 3) + (e & 1);
-        const int tap = k0 + col / CB, c = ct * CB + col % CB;
-        if (o < p.og && tap < p.K && c < p.cg)
-          pc[((size_t)(g * p.og + o) * p.K + tap) * p.cg + c] = acc[i][j][e];
-      }
-}
-
-// ---------------------------------------------------------------------------
 // dW in f32, CUDA cores. Block = (tap tile of KT taps, group, chunk of the
 // flattened batch x time rows). Outputs of the block: M = kt*cg rows (tap,
 // input channel) by N = og columns; thread (ty, tx) owns rows ty + NY*i and
 // columns tx + NX*j. Rows are staged kBTf at a time: xs[kBTf][M+1] and
-// dys[kBTf][N+1] (padded against bank conflicts). Writes the same partial
-// slab layout as the bf16 kernel.
+// dys[kBTf][N+1] (padded against bank conflicts). Each block writes its
+// chunk's f32 partial slab [Cout, K, cg]; conv_dw_reduce_kernel adds them.
 // ---------------------------------------------------------------------------
 
 constexpr int kBTf = 32;
@@ -1077,10 +737,9 @@ conv_dw_partial_f32_kernel(const float* __restrict__ x, const float* __restrict_
   }
 }
 
-// dW, second pass: add the chunks' [Cout, K, cg] slabs in chunk order and
-// write [Cout, cg, K] in the operand type.
-template <typename T>
-__global__ void conv_dw_reduce_kernel(const float* __restrict__ part, T* __restrict__ dw,
+// f32 dW, second pass: add the chunks' [Cout, K, cg] slabs in chunk order
+// and write [Cout, cg, K].
+__global__ void conv_dw_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw,
                                       int n_chunks, int K, int cg, long long total) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
        i += (long long)gridDim.x * blockDim.x) {
@@ -1090,19 +749,8 @@ __global__ void conv_dw_reduce_kernel(const float* __restrict__ part, T* __restr
     const long long oj = i / cg;
     const int j = (int)(oj % K);
     const long long o = oj / K;
-    dw[((size_t)o * cg + c) * K + j] = from_f<T>(sum);
+    dw[((size_t)o * cg + c) * K + j] = sum;
   }
-}
-
-template <typename T>
-int launch_reduce(const float* part, void* dw, int n_chunks, int Cout, int K, int cg,
-                  cudaStream_t stream) {
-  const long long total = (long long)Cout * K * cg;
-  const long long want = (total + 255) / 256;
-  const int blocks = want < 4096 ? (int)want : 4096;
-  conv_dw_reduce_kernel<T><<<blocks, 256, 0, stream>>>(part, static_cast<T*>(dw),
-                                                       n_chunks, K, cg, total);
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1175,18 +823,6 @@ int dispatch_conv(bool dx, const void* src, const void* w, void* wp, void* dst,
   }
 }
 
-template <int MW, int CB>
-int launch_dw(const void* x, const void* dy, float* part, const DwParams& p, dim3 grid,
-              int smem_bytes, cudaStream_t stream) {
-  auto kern = conv_dw_partial_kernel<MW, CB>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<grid, kThreads, smem_bytes, stream>>>(static_cast<const bf16*>(x),
-                                               static_cast<const bf16*>(dy), part, p);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -1232,30 +868,6 @@ int grouped_conv1d_weight_layout(const void* w, void* wp, const int* params, int
   return (int)cudaGetLastError();
 }
 
-// bf16 dW. params: the DwParams fields in order; ob = output channels per
-// block (16, 32 or 64), cb = input channels per block (16 or 32). part: f32
-// scratch of n_chunks * Cout * K * cg; dw: [Cout, cg, K] bf16.
-int grouped_conv1d_dw_bf16(const void* x, const void* dy, void* part, void* dw,
-                           const int* params, int ob, int cb, int grid_x, int grid_y,
-                           int n_chunks, int smem_bytes, void* stream) {
-  const DwParams& p = *reinterpret_cast<const DwParams*>(params);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* pt = static_cast<float*>(part);
-  const dim3 grid(grid_x, grid_y, n_chunks);
-  int err = (int)cudaErrorInvalidValue;
-  if (cb == 32) {
-    if (ob == 16) err = launch_dw<1, 32>(x, dy, pt, p, grid, smem_bytes, s);
-    if (ob == 32) err = launch_dw<2, 32>(x, dy, pt, p, grid, smem_bytes, s);
-    if (ob == 64) err = launch_dw<4, 32>(x, dy, pt, p, grid, smem_bytes, s);
-  } else if (cb == 16) {
-    if (ob == 16) err = launch_dw<1, 16>(x, dy, pt, p, grid, smem_bytes, s);
-    if (ob == 32) err = launch_dw<2, 16>(x, dy, pt, p, grid, smem_bytes, s);
-    if (ob == 64) err = launch_dw<4, 16>(x, dy, pt, p, grid, smem_bytes, s);
-  }
-  if (err != 0) return err;
-  return launch_reduce<bf16>(pt, dw, n_chunks, p.Cout, p.K, p.cg, s);
-}
-
 // f32 dW. part: f32 scratch of n_chunks * Cout * K * (Cin/G).
 int grouped_conv1d_dw_f32(const void* x, const void* dy, void* part, void* dw, int B,
                           int Tin, int Cin, int K, int Cout, int stride, int pad_l,
@@ -1274,7 +886,11 @@ int grouped_conv1d_dw_f32(const void* x, const void* dy, void* part, void* dw, i
                                           rows_per_chunk);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  return launch_reduce<float>(pt, dw, n_chunks, Cout, K, Cin / G, s);
+  const long long total = (long long)Cout * K * (Cin / G);
+  const long long want = (total + 255) / 256;
+  conv_dw_reduce_kernel<<<want < 4096 ? (int)want : 4096, 256, 0, s>>>(
+      pt, static_cast<float*>(dw), n_chunks, K, Cin / G, total);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -3,8 +3,9 @@
 Each source under ``ste_gan_torch/csrc/`` compiles on its own into a shared
 library with a plain C interface (``-gencode arch=compute_90a,code=sm_90a``),
 into ``build/ste_gan_torch/`` at the root of the checkout. A library's file
-name carries a hash of its source and of the flags, so an edited source
-builds anew and an unchanged one is reused. :func:`build_all` starts one
+name carries a hash of its source, of the shared headers (``csrc/*.cuh``)
+and of the flags, so an edited source or header builds anew and an
+unchanged one is reused. :func:`build_all` starts one
 ``nvcc`` per source, all at once. Nothing is built when this module is
 imported: the first call that needs a library builds it.
 """
@@ -35,8 +36,11 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "grouped_conv1d_fwd_bf16": [_P] * 4 + [_INTS] + [_I] * 3 + [_P],
         "grouped_conv1d_dx_bf16": [_P] * 4 + [_INTS] + [_I] * 3 + [_P],
         "grouped_conv1d_weight_layout": [_P, _P, _INTS, _I, _P],
-        "grouped_conv1d_dw_bf16": [_P, _P, _P, _P, _INTS] + [_I] * 6 + [_P],
         "grouped_conv1d_dw_f32": [_P, _P, _P, _P] + [_I] * 14 + [_P],
+    },
+    "grouped_conv_dw": {
+        "grouped_conv1d_dw_bf16": [_P, _P, _P, _INTS, _P],
+        "grouped_conv1d_dw_max_clusters": [_I, ctypes.POINTER(ctypes.c_int)],
     },
     "adamw": {
         "adamw_multi_tensor": [_P] * 7 + [_I, _I, _P, _P, _P],
@@ -71,7 +75,9 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 

@@ -3,8 +3,9 @@ PyTorch versions, and the autograd function that joins them.
 
 Replaces ``ste_gan_tpu/ops/pallas_conv.py``: ``_fwd_kernel`` (forward, and
 dX through ``_conv_core_bwd``) and ``_dw_kernel`` (dW). The CUDA sources are
-``ste_gan_torch/csrc/grouped_conv.cu``, whose comments say what bounds each
-kernel on the card and how its design meets it.
+``ste_gan_torch/csrc/grouped_conv.cu`` and ``grouped_conv_dw.cu`` (the bf16
+dW), whose comments say what bounds each kernel on the card and how its
+design meets it.
 
 Layout is PyTorch's: ``x`` is ``[B, Cin, T]``, the weight ``[Cout, Cin/G, K]``
 and the output ``[B, Cout, Tout]``; output channels form G consecutive
@@ -24,11 +25,14 @@ Routes by operand type:
   stride-1 GEMM over a shared ``dy`` window), one wgmma mainloop with
   weights resident per (group, channel tile) in persistent CTAs, each
   after the one-launch ``conv_weight_layout_kernel``; and
-  ``conv_dw_partial_kernel`` + ``conv_dw_reduce_kernel`` (implicit-GEMM dW,
-  ``mma.sync``). Their launch plans are :func:`_plan_conv` and
-  :func:`_plan_dw`, pure Python; :func:`_layout_weights` and
-  :func:`emulate_conv` repeat the wgmma kernels' layouts and schedule on
-  the CPU, for the tests.
+  ``conv_dw_wgmma_kernel`` (dW, one launch; it replaces ``pallas_conv.py:158``
+  ``_dw_kernel``): wgmma with ``dy`` from registers and the same
+  channel-last ``x`` window through an MN-major descriptor, rows split over
+  a thread-block cluster whose partial sums are added on chip in rank
+  order. Their launch plans are :func:`_plan_conv` and :func:`_plan_dw`,
+  pure Python; :func:`_layout_weights`, :func:`emulate_conv` and
+  :func:`emulate_dw` repeat the kernels' layouts and schedules on the CPU,
+  for the tests.
 * f32 (exact, no TF32): the CUDA-core kernels of the first port.
   ``conv_fwd_kernel`` is the forward; dX runs it on stride-dilated ``dy``
   with flipped, transposed weights (:func:`dilate_flip`, which only this
@@ -44,7 +48,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Iterator, List, Tuple
+from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -52,20 +56,18 @@ import torch.nn.functional as F
 from ste_gan_torch.ops import build
 
 _THREADS = 256
-_WARPS = _THREADS // 32
 _SMEM_LIMIT = 227 * 1024
 _DTYPES = (torch.float32, torch.bfloat16)
 #: The wgmma forward and dX: widest N, and the mbarriers' bytes at the start
 #: of shared memory.
 _CONV_MAX_N = 64
 _BAR_BYTES = 256
-#: dW: rows (time steps of one batch row) per staged tile, as ``kBT``.
-_DW_ROWS = 128
-#: dW: most blocks to launch, two full waves of an H100's 132 SMs at the
-#: kernel's two blocks per SM (so that no third wave runs nearly empty),
-#: and fewest row tiles a chunk sums before it writes its partial slab.
-_DW_MAX_BLOCKS = 2 * 2 * 132
-_DW_MIN_TILES = 4
+#: dW: units per consumer warpgroup of ``conv_dw_wgmma_kernel``, by wgmma
+#: N (its instantiations); a unit's accumulators take N / 2 registers a
+#: thread, so each keeps 128-160 of them (the consumers run at 216). The
+#: most CTAs of a cluster (the portable limit).
+_DW_UNITS = {64: 4, 32: 10, 16: 16}
+_DW_MAX_CLUSTER = 8
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -192,9 +194,6 @@ _CONV_FIELDS = ("B", "C_src", "T_src", "C_dst", "T_dst", "G",
                 "resident", "ck", "n_chunks",
                 "slot_bytes", "tap_bytes", "w_off", "win_off", "out_ld",
                 "K", "stride", "P0", "dx", "vec", "s_shift")
-_DW_FIELDS = ("B", "Cin", "Cout", "Tin", "Tout", "K", "stride", "pad_l", "G",
-              "cg", "og", "n_otiles", "n_ctiles", "kt", "tiles_per_b",
-              "n_rtiles", "tiles_per_chunk", "V")
 
 
 def _struct(plan, fields) -> ctypes.Array:
@@ -391,21 +390,31 @@ def _layout_weights(w, plan: ConvPlan):
     return torch.where(ok, vals, torch.zeros_like(vals))
 
 
-def _stage_window(src, plan: ConvPlan, b: int, g: int, tt: int):
-    """The window slot of one tile, as the window warps stage it: source
-    time ``tt*bm*S + t_off + pv`` of the group's channels, channel-last, at
-    ``[plane = pv mod S][c/8][row = pv div S][c mod 8]``; zeros outside the
-    source and past its channels. Returned as 16-byte units ``[n, 8]``."""
-    p = plan
-    pv = torch.arange(p.S * p.V)
-    c = torch.arange(p.C8 * 8)
-    t = tt * p.bm * p.S + p.t_off + pv
-    ok = (c < p.CR)[:, None] & ((t >= 0) & (t < p.T_src))[None, :]
-    vals = src[b, (g * p.CR + c).clamp(max=p.C_src - 1)][
-        :, t.clamp(0, p.T_src - 1)] * ok
-    win = src.new_zeros(p.S, p.C8, p.V, 8)
-    win[pv % p.S, :, pv // p.S, :] = vals.t().reshape(-1, p.C8, 8)
+def _channel_last_window(src, b: int, c0: int, n_ch: int, t0: int, s: int,
+                         c8: int, v: int):
+    """Source times ``t0 + pv`` (``pv < s*v``) of channels ``c0 ..
+    c0 + n_ch`` of batch row ``b``, channel-last as the window warps stage
+    them: ``[plane = pv mod s][c/8][row = pv div s][c mod 8]``, zeros
+    outside the source and past the channels. Returned as 16-byte units
+    ``[n, 8]``."""
+    pv = torch.arange(s * v)
+    c = torch.arange(c8 * 8)
+    t = t0 + pv
+    n_t = src.shape[-1]
+    ok = (c < n_ch)[:, None] & ((t >= 0) & (t < n_t))[None, :]
+    vals = src[b, (c0 + c).clamp(max=src.shape[1] - 1)][
+        :, t.clamp(0, n_t - 1)] * ok
+    win = src.new_zeros(s, c8, v, 8)
+    win[pv % s, :, pv // s, :] = vals.t().reshape(-1, c8, 8)
     return win.reshape(-1, 8)
+
+
+def _stage_window(src, plan: ConvPlan, b: int, g: int, tt: int):
+    """The window slot of one forward or dX tile: source time
+    ``tt*bm*S + t_off + pv`` of the group's channels."""
+    p = plan
+    return _channel_last_window(src, b, g * p.CR, p.CR,
+                                tt * p.bm * p.S + p.t_off, p.S, p.C8, p.V)
 
 
 def _desc_read(buf, start: int, lbo: int, rows: int):
@@ -466,6 +475,15 @@ def emulate_conv(src, w, plan: ConvPlan):
 
 @dataclasses.dataclass(frozen=True)
 class DwPlan:
+    """One launch of ``conv_dw_wgmma_kernel``: per group a GEMM of M =
+    output channels (a tile of 64) by N = (plane, input channel) columns,
+    summed over the B x Tout rows. A *unit* is one wgmma column tile: tap row
+    ``m`` and plane group ``pg``, whose column ``r*CO + c`` is channel ``c``
+    at tap ``m*s + pg*R + r``. A cluster of ``C`` CTAs owns an output tile
+    (group, output-channel tile, channel tile, *part* of ``2 * UW`` units,
+    ``UW`` per consumer warpgroup); its ranks split the row tiles, both
+    warpgroups of a CTA consume each staged tile, and the partial tiles are
+    summed on chip in rank order."""
     B: int
     Cin: int
     Cout: int
@@ -477,75 +495,261 @@ class DwPlan:
     G: int
     cg: int
     og: int
-    n_otiles: int        # output-channel tiles of ob per group
-    n_ctiles: int        # input-channel tiles of cb per group
-    kt: int              # taps per block
-    tiles_per_b: int     # row tiles of _DW_ROWS per batch row
-    n_rtiles: int
-    tiles_per_chunk: int
-    V: int               # x window rows per phase
-    ob: int              # output channels per block (16, 32 or 64)
-    cb: int              # input channels per block (16 or 32)
-    n_ttiles: int        # tap tiles
-    n_chunks: int
+    CO: int            # input channels per channel tile (8 * C8)
+    C8: int
+    n_ct: int          # channel tiles per group
+    n_ot: int          # output-channel tiles of 64 per group
+    R: int             # planes (taps of a tap row) per unit
+    n_pg: int          # plane groups per tap row
+    U: int             # units: ceil(K / s) tap rows x n_pg
+    UW: int            # units of each consumer warpgroup (2 * UW a part)
+    n_parts: int
+    BT: int            # rows (time steps of one batch row) per row tile
+    n_tb: int          # row tiles per batch row
+    n_rt: int          # row tiles
+    C: int             # CTAs per cluster
+    n_tiles: int       # clusters (output tiles)
+    V: int             # window rows per plane
+    JP: int            # taps per (o, c) row of the reduce buffer, odd
+    planes: int        # window planes per slot (>= stride)
+    dy_pitch: int      # elements per output-channel row of the dy tile
+    slot_bytes: int
+    win_off: int       # the x window inside a slot, after the dy tile
+    n_slots: int       # ring slots
+    n_x8: int          # 8-step chunks of x a window loads
+    raw_pitch: int     # elements per channel row of a raw x buffer
+    raw_off: int       # the two raw x buffers, after the slots
+    x_async: int       # x by cp.async: Tin % 8 == 0, stride a power of 2
+    dy_async: int      # dy by cp.async: Tout % 8 == 0
+    s_shift: int       # log2 stride when it is a power of 2
+    b_lbo: int         # the x descriptor's strides in 16-byte units: the
+    b_sbo: int         # next 8 rows (LBO), the next 8 columns (SBO)
+    nt_w: int          # the wgmma N: 16, 32 or 64
     smem: int
 
     @property
-    def grid(self) -> Tuple[int, int, int]:
-        return (self.n_ttiles, self.G * self.n_otiles * self.n_ctiles,
-                self.n_chunks)
+    def grid(self) -> int:
+        """CTAs: ``C`` per cluster."""
+        return self.n_tiles * self.C
 
     @functools.cached_property
     def args(self) -> ctypes.Array:
         return _struct(self, _DW_FIELDS)
 
-    def row_tiles(self, chunk: int) -> range:
-        start = chunk * self.tiles_per_chunk
-        return range(start, min(self.n_rtiles, start + self.tiles_per_chunk))
+    def tile(self, i: int) -> Tuple[int, int, int, int]:
+        """(group, output-channel tile, channel tile, part) of cluster
+        ``i``, as ``conv_dw_wgmma_kernel`` decodes it."""
+        rest, part = divmod(i, self.n_parts)
+        rest, ct = divmod(rest, self.n_ct)
+        g, ot = divmod(rest, self.n_ot)
+        return g, ot, ct, part
 
-    def rows(self, tile: int) -> Iterator[Tuple[int, int]]:
-        """(batch row, time step) of every real row of a row tile."""
-        bb, i = divmod(tile, self.tiles_per_b)
-        for u in range(i * _DW_ROWS, min(self.Tout, (i + 1) * _DW_ROWS)):
-            yield bb, u
+    def part_units(self, part: int) -> range:
+        """The units of a part: the U units in ``n_parts`` near-equal
+        contiguous ranges."""
+        return range(part * self.U // self.n_parts,
+                     (part + 1) * self.U // self.n_parts)
 
-    def block(self, bx: int, by: int) -> Tuple[int, range, range, range]:
-        """(group, output channels, input channels, taps) of a block, as
-        the kernel decodes blockIdx.x / .y."""
-        ct = by % self.n_ctiles
-        ot = (by // self.n_ctiles) % self.n_otiles
-        g = by // (self.n_ctiles * self.n_otiles)
-        k0 = bx * self.kt
-        return (g, range(ot * self.ob, min(self.og, (ot + 1) * self.ob)),
-                range(ct * self.cb, min(self.cg, (ct + 1) * self.cb)),
-                range(k0, min(self.K, k0 + self.kt)))
+    def units(self, part: int, wg: int) -> range:
+        """The units consumer warpgroup ``wg`` holds in a part (at most
+        ``UW``): the first half of the part's, rounded up, or the rest."""
+        q = self.part_units(part)
+        mid = q.start + (len(q) + 1) // 2
+        return range(q.start, mid) if wg == 0 else range(mid, q.stop)
+
+    def first_row(self, part: int) -> int:
+        """The first tap row of a part: its window starts at that tap."""
+        return self.part_units(part).start // self.n_pg
+
+    def unit_start(self, part: int, q: int) -> int:
+        """16-byte unit of a slot's window where unit ``q`` reads its first
+        row: plane ``pg*R``, row ``m`` less the part's first tap row."""
+        m, pg = divmod(q, self.n_pg)
+        return pg * self.R * self.C8 * self.V + m - self.first_row(part)
+
+    def taps(self, part: int) -> range:
+        """The taps whose columns lie in the part's units."""
+        q0, q1 = self.part_units(part).start, self.part_units(part).stop
+        first = (q0 // self.n_pg) * self.stride + (q0 % self.n_pg) * self.R
+        last = (q1 // self.n_pg) * self.stride + (q1 % self.n_pg) * self.R
+        return range(first, min(self.K, last))
+
+    def rank_rows(self, rank: int) -> range:
+        """The contiguous row tiles of cluster rank ``rank``."""
+        return range(rank * self.n_rt // self.C,
+                     (rank + 1) * self.n_rt // self.C)
+
+    def rows(self, rt: int) -> Tuple[int, range]:
+        """(batch row, time steps) of row tile ``rt``."""
+        b, tb = divmod(rt, self.n_tb)
+        return b, range(tb * self.BT, min(self.Tout, (tb + 1) * self.BT))
+
+    def extent(self, i: int) -> Tuple[int, int]:
+        """(output channels, input channels) of cluster ``i``'s tile."""
+        _, ot, ct, _ = self.tile(i)
+        return (min(64, self.og - 64 * ot), min(self.CO, self.cg - self.CO * ct))
+
+    def reduce_slice(self, i: int, rank: int) -> range:
+        """The (o, c) rows (``o * n_c + c``) of cluster ``i``'s tile that
+        rank ``rank`` sums over the ranks and stores."""
+        n_o, n_c = self.extent(i)
+        pairs = n_o * n_c
+        return range(rank * pairs // self.C, (rank + 1) * pairs // self.C)
+
+
+#: ``DwParams`` of the kernel: every field of the plan, in order.
+_DW_FIELDS = tuple(f.name for f in dataclasses.fields(DwPlan))
+
+
+def _dw_layout(k: int, stride: int, cg: int):
+    """The unit geometry of dW: (CO, C8, n_ct, R, n_pg, U, nt_w)."""
+    c8 = 8 if cg > 64 else _pow2_at_least(_cdiv(cg, 8), 1)
+    co = 8 * c8
+    r = 1
+    while 2 * r <= stride and 2 * r * co <= _CONV_MAX_N:
+        r *= 2
+    n_pg = _cdiv(stride, r)
+    return co, c8, _cdiv(cg, co), r, n_pg, _cdiv(k, stride) * n_pg, \
+        _pow2_at_least(r * co, 16)
 
 
 @functools.lru_cache(maxsize=256)
 def _plan_dw(b: int, c_in: int, c_out: int, k: int, stride: int, pad_l: int,
-             t_in: int, t_out: int, groups: int) -> DwPlan:
-    """Tiles, row chunks, grid and shared memory of
-    ``conv_dw_partial_kernel``."""
+             t_in: int, t_out: int, groups: int,
+             clusters: Tuple[int, ...]) -> DwPlan:
+    """Units, parts, cluster size, row tiles and shared memory of
+    ``conv_dw_wgmma_kernel`` on a card that holds ``clusters[C - 1]``
+    clusters of C CTAs at once (:func:`_cluster_table`). The U units are
+    split into parts as evenly as the units a warpgroup holds allow; of the
+    cluster sizes it takes the one whose busiest CTA has the fewest row
+    tiles, counted in waves of clusters."""
     cg, og = c_in // groups, c_out // groups
-    ob = 16 if og <= 16 else (32 if og <= 32 else 64)
-    cb = 16 if cg <= 16 else 32
-    kt = _WARPS * 32 // cb  # each warp owns 32 columns (tap, channel)
-    n_otiles, n_ctiles, n_ttiles = _cdiv(og, ob), _cdiv(cg, cb), _cdiv(k, kt)
-    tiles_per_b = _cdiv(t_out, _DW_ROWS)
-    n_rtiles = b * tiles_per_b
-    per_chunk = n_ttiles * groups * n_otiles * n_ctiles
-    n_chunks = max(1, min(_DW_MAX_BLOCKS // per_chunk,
-                          n_rtiles // _DW_MIN_TILES))
-    tiles_per_chunk = _cdiv(n_rtiles, n_chunks)
-    n_chunks = _cdiv(n_rtiles, tiles_per_chunk)
-    v = _DW_ROWS + (kt - 1) // stride
-    smem = 2 * (ob * (_DW_ROWS + 8) + stride * v * (cb + 8))
-    if smem > _SMEM_LIMIT:
+    co, c8, n_ct, r, n_pg, units, nt_w = _dw_layout(k, stride, cg)
+    n_ot = _cdiv(og, 64)
+    planes = max(stride, ((n_pg - 1) * r * c8 + nt_w // 8 + c8 - 1) // c8)
+    for bt in ((128, 64) if t_out > 64 else (64,)):
+        n_tb = _cdiv(t_out, bt)
+        n_rt = b * n_tb
+        uw = _DW_UNITS[nt_w]
+        parts = _cdiv(units, 2 * uw)
+        n_tiles = groups * n_ot * n_ct * parts
+        c = min(range(1, min(_DW_MAX_CLUSTER, max(1, n_rt // 2)) + 1),
+                key=lambda c: (_cdiv(n_tiles, clusters[c - 1])
+                               * _cdiv(n_rt, c), c))
+        span = max((((p + 1) * units // parts) - 1) // n_pg
+                   - p * units // parts // n_pg for p in range(parts)) + 1
+        v = bt + span - 1
+        jp = span * stride | 1
+        dy_pitch = bt + 8
+        dy_bytes = 64 * dy_pitch * 2
+        slot = _round_up(dy_bytes + planes * c8 * v * 16, 128)
+        n_x8 = (stride * v + 7) // 8 + 1
+        raw_pitch = _round_up(8 * n_x8 - 8, 64) + 8  # 16 bytes mod 128
+        raw = 2 * co * raw_pitch * 2
+        red = 64 * co * jp * 4
+        for n_slots in (4, 3, 2):
+            smem = _BAR_BYTES + max(n_slots * slot + raw, red)
+            if smem <= _SMEM_LIMIT:
+                break
+        if smem <= _SMEM_LIMIT:
+            break
+    else:
         raise ValueError(f"grouped conv dW tile needs {smem} bytes of shared "
-                         f"memory (stride {stride})")
-    return DwPlan(b, c_in, c_out, t_in, t_out, k, stride, pad_l, groups, cg,
-                  og, n_otiles, n_ctiles, kt, tiles_per_b, n_rtiles,
-                  tiles_per_chunk, v, ob, cb, n_ttiles, n_chunks, smem)
+                         f"memory (K {k}, stride {stride}, {cg} channels "
+                         f"per group)")
+    pow2 = stride & (stride - 1) == 0
+    return DwPlan(
+        b, c_in, c_out, t_in, t_out, k, stride, pad_l, groups, cg, og, co, c8,
+        n_ct, n_ot, r, n_pg, units, uw, parts, bt, n_tb, n_rt, c, n_tiles, v,
+        jp, planes, dy_pitch, slot, dy_bytes, n_slots, n_x8, raw_pitch,
+        n_slots * slot, int(t_in % 8 == 0 and pow2), int(t_out % 8 == 0),
+        stride.bit_length() - 1 if pow2 else 0, 8, v, nt_w, smem)
+
+
+def _desc_read_mn(buf, start, lbo: int, sbo: int, cols: int):
+    """The ``[cols, 16]`` (N x K) matrix an MN-major no-swizzle wgmma
+    descriptor reads from ``buf`` (16-byte units ``[n, 8]``): column ``n``,
+    row ``k`` at unit ``start + k mod 8 + lbo*(k div 8) + sbo*(n div 8)``,
+    element ``n mod 8`` of it (8 columns of one row are one unit). ``start``
+    may be a tensor of starts: one matrix each, ``[..., cols, 16]``."""
+    start = torch.as_tensor(start)[..., None, None]
+    n = torch.arange(cols)[:, None]
+    k = torch.arange(16)[None, :]
+    unit = start + k % 8 + lbo * (k // 8) + sbo * (n // 8)
+    return buf[unit, (n % 8).expand(unit.shape)]
+
+
+def _stage_dw(x, dy, plan: DwPlan, i: int, rt: int):
+    """The slot of cluster ``i``'s row tile ``rt``, as the window warps and
+    the bulk copies stage it: the x window (time ``u0*s + m_first*s - pad_l
+    + pv`` of the tile's channels, channel-last at ``[plane = pv mod s][c/8]
+    [row = pv div s][c mod 8]``, zeros outside x and past the channels) as
+    16-byte units, and the dy tile ``[64][BT]`` (zeros past the output
+    channels and Tout)."""
+    p = plan
+    g, ot, ct, part = p.tile(i)
+    b, times = p.rows(rt)
+    u0 = times.start
+    win = _channel_last_window(
+        x, b, g * p.cg + p.CO * ct, min(p.CO, p.cg - p.CO * ct),
+        (u0 + p.first_row(part)) * p.stride - p.pad_l, p.stride, p.C8, p.V)
+    win = torch.cat([win, win.new_zeros((p.planes - p.stride) * p.C8 * p.V,
+                                        8)])
+    n_o = min(64, p.og - 64 * ot)
+    dyt = dy.new_zeros(64, p.BT)
+    o0 = g * p.og + 64 * ot
+    dyt[:n_o, :len(times)] = dy[b, o0:o0 + n_o, u0:times.stop]
+    return win, dyt
+
+
+def emulate_dw(x, dy, plan: DwPlan):
+    """``conv_dw_wgmma_kernel``'s schedule in f32 on the CPU: per cluster and
+    rank its row tiles, each staged as the kernel stages it; per k16 step
+    the dy rows of the register A operand and, per unit of each consumer
+    warpgroup, the x columns its MN-major descriptor reads; then each
+    warpgroup's sums into the reduce buffer ``[o][c][jj]`` and each rank's
+    slice summed over the ranks in order. Equals :func:`conv_dw_plain` up to
+    f32 rounding."""
+    p = plan
+    x, dy = x.float(), dy.float()
+    dw = x.new_zeros(p.Cout, p.cg, p.K)
+    cols = torch.arange(p.nt_w)
+    r_col, c_col = cols // p.CO, cols % p.CO
+    for i in range(p.n_tiles):
+        g, ot, ct, part = p.tile(i)
+        units = list(p.units(part, 0)) + list(p.units(part, 1))
+        jbase = p.first_row(part) * p.stride
+        taps = p.taps(part)
+        n_o, n_c = p.extent(i)
+        starts = torch.tensor([[p.unit_start(part, q) + 16 * ks
+                                for ks in range(p.BT // 16)] for q in units])
+        reds = []
+        for rank in range(p.C):
+            acc = x.new_zeros(len(units), 64, p.nt_w)
+            for rt in p.rank_rows(rank):
+                win, dyt = _stage_dw(x, dy, p, i, rt)
+                # Per unit and k16 step the x columns of the unit's
+                # descriptor, and per k16 step the dy rows of A.
+                bmat = _desc_read_mn(win, starts, p.b_lbo, p.b_sbo, p.nt_w)
+                acc += torch.einsum("oks,ukns->uon", dyt.view(64, -1, 16), bmat)
+            red = x.new_zeros(64, p.CO, p.JP)
+            for u, q in enumerate(units):
+                m, pg = divmod(q, p.n_pg)
+                j = m * p.stride + pg * p.R + r_col
+                ok = (pg * p.R + r_col < p.stride) & (j < p.K) & (c_col < n_c)
+                red[:n_o, c_col[ok], (j - jbase)[ok]] = acc[u][:n_o][:, ok]
+            reds.append(red)
+        o0, c0 = g * p.og + 64 * ot, p.CO * ct
+        jj = torch.arange(taps.start, taps.stop) - jbase
+        for rank in range(p.C):
+            pair = torch.arange(p.reduce_slice(i, rank).start,
+                                p.reduce_slice(i, rank).stop)
+            o, c = pair // n_c, pair % n_c
+            total = reds[0][o, c][:, jj]
+            for red in reds[1:]:
+                total = total + red[o, c][:, jj]
+            dw[(o0 + o)[:, None], (c0 + c)[:, None], (jj + jbase)[None]] = total
+    return dw
 
 
 # ---------------------------------------------------------------------------
@@ -562,6 +766,10 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
 def _launch_conv_bf16(dx: bool, src, w, stride: int, pad_l: int, t_in: int,
                       t_out: int, groups: int):
     """The forward (``src`` = x) or dX (``src`` = dy): the layout kernel
@@ -569,9 +777,7 @@ def _launch_conv_bf16(dx: bool, src, w, stride: int, pad_l: int, t_in: int,
     c_out, cg, k = w.shape
     dev = src.device
     plan = _plan_conv(dx, src.shape[0], cg * groups, c_out, k, stride, pad_l,
-                      t_in, t_out, groups,
-                      _sm_count(dev.index if dev.index is not None
-                                else torch.cuda.current_device()))
+                      t_in, t_out, groups, _sm_count(_device_index(dev)))
     src = src.contiguous()
     w = w.contiguous()
     if plan.vec and src.data_ptr() % 16:
@@ -613,23 +819,48 @@ def _launch_fwd_f32(x, w, stride: int, pad_l: int, t_out: int, groups: int):
     return y
 
 
-def _launch_dw_bf16(x, dy, k: int, stride: int, pad_l: int, groups: int):
+def _plan_dw_for(x, dy, k: int, stride: int, pad_l: int, groups: int):
+    """The dW plan for these CUDA operands on their card; 16-byte copies
+    only from 16-byte aligned bases."""
     b, c_in, t_in = x.shape
     _, c_out, t_out = dy.shape
-    plan = _plan_dw(b, c_in, c_out, k, stride, pad_l, t_in, t_out, groups)
+    index = _device_index(x.device)
+    plan = _plan_dw(b, c_in, c_out, k, stride, pad_l, t_in, t_out, groups,
+                    _cluster_table(index))
+    if plan.x_async and x.data_ptr() % 16:
+        plan = dataclasses.replace(plan, x_async=0)
+    if plan.dy_async and dy.data_ptr() % 16:
+        plan = dataclasses.replace(plan, dy_async=0)
+    return plan
+
+
+def _launch_dw_bf16(x, dy, k: int, stride: int, pad_l: int, groups: int):
+    """``conv_dw_wgmma_kernel``: one launch, the sums reduced on chip."""
     x = x.contiguous()
     dy = dy.contiguous()
-    part = torch.empty(plan.n_chunks, c_out, k, plan.cg, device=x.device,
-                       dtype=torch.float32)
-    dw = torch.empty(c_out, plan.cg, k, device=x.device, dtype=x.dtype)
-    lib = build.load("grouped_conv")
-    gx, gy, _ = plan.grid
-    err = lib.grouped_conv1d_dw_bf16(
-        x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
-        plan.args, plan.ob, plan.cb, gx, gy, plan.n_chunks, plan.smem,
-        _stream())
+    plan = _plan_dw_for(x, dy, k, stride, pad_l, groups)
+    dw = torch.empty(plan.Cout, plan.cg, k, device=x.device, dtype=x.dtype)
+    lib = build.load("grouped_conv_dw")
+    err = lib.grouped_conv1d_dw_bf16(x.data_ptr(), dy.data_ptr(),
+                                     dw.data_ptr(), plan.args, _stream())
     build.check(err, "grouped_conv1d_dw_bf16")
     return dw
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_table(index: int) -> Tuple[int, ...]:
+    """How many clusters of 1 .. 8 CTAs of the dW kernel card ``index``
+    holds at once (``cudaOccupancyMaxActiveClusters``): a cluster's CTAs
+    share a GPC, so large clusters leave SMs idle."""
+    lib = build.load("grouped_conv_dw")
+    table = []
+    with torch.cuda.device(index):
+        for c in range(1, _DW_MAX_CLUSTER + 1):
+            out = ctypes.c_int(0)
+            build.check(lib.grouped_conv1d_dw_max_clusters(c, ctypes.byref(out)),
+                        "grouped_conv1d_dw_max_clusters")
+            table.append(out.value)
+    return tuple(table)
 
 
 def _launch_dw_f32(x, dy, k: int, stride: int, pad_l: int, groups: int):
@@ -647,7 +878,8 @@ def _launch_dw_f32(x, dy, k: int, stride: int, pad_l: int, groups: int):
     n_ktiles = -(-k // kt)
     rows = b * t_out
     n_chunks = max(1, min(-(-rows // 32),
-                          -(-4 * 132 * 2 // (n_ktiles * groups))))
+                          -(-4 * _sm_count(_device_index(x.device)) * 2
+                            // (n_ktiles * groups))))
     rows_per_chunk = -(-rows // n_chunks)
     n_chunks = -(-rows // rows_per_chunk)
     smem = 4 * 32 * (kt * cg + 1 + og + 1)

@@ -25,7 +25,7 @@ from ste_gan_torch.train import gan as tgan
 #: The CUDA kernels of ``ste_gan_torch/csrc``, listed whatever their rank.
 HAND_KERNELS = ("conv_fwd_wgmma_kernel", "conv_dx_wgmma_kernel",
                 "conv_weight_layout_kernel", "conv_fwd_kernel",
-                "conv_dw_partial_kernel", "conv_dw_partial_f32_kernel",
+                "conv_dw_wgmma_kernel", "conv_dw_partial_f32_kernel",
                 "conv_dw_reduce_kernel", "adamw_multi_tensor_kernel")
 
 

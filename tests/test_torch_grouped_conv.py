@@ -2,8 +2,10 @@
 plain versions on the CPU) against the JAX Pallas kernel in interpret mode
 and XLA's grouped conv: values, dX and dW, f32. Also the launch plans and
 the weight layouts of the bf16 tensor-core forward, dX and dW kernels, which
-run only on the card, and the wgmma kernels' schedule emulated on the CPU
-(``emulate_conv``) against the plain versions (1e-5 relative, f32).
+run only on the card, and the wgmma kernels' schedules emulated on the CPU
+(``emulate_conv``, ``emulate_dw``) against the plain versions (1e-5
+relative, f32); the dW kernel's MN-major descriptor reads against x itself
+(exact).
 
 Tolerances are the JAX file's own (tests/test_pallas_conv.py): rtol/atol
 1e-5 on values, rtol 1e-4 / atol 1e-5 on gradients.
@@ -13,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from ste_gan_torch.ops import grouped_conv as gc
 from ste_gan_tpu.ops.pallas_conv import grouped_conv1d, lax_grouped_conv1d
@@ -26,6 +29,17 @@ CASES = [
     (1, 50, 16, 16, 5, 2, 2, 4),
     (2, 64, 32, 256, 5, 1, 2, 2),
 ]
+
+
+@pytest.fixture
+def one_thread():
+    """The emulators' many small products run fastest on one thread; with
+    several test workers, each with a thread per core, they stall each
+    other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _inputs(case, seed=0):
@@ -206,6 +220,14 @@ FULL_SCALE_GROUPED = ((2048, 128, 128, 41, 2, 20, 4),
                       (128, 512, 1024, 41, 4, 20, 16),
                       (32, 1024, 1024, 41, 1, 20, 16))
 K_BELOW_STRIDE = (2, 33, 8, 16, 3, 4, 1, 2)
+#: Clusters of 1 .. 8 CTAs of the dW kernel an H100 80GB HBM3 holds at once
+#: (``cudaOccupancyMaxActiveClusters`` on the card, ``_cluster_table``).
+H100_CLUSTERS = (132, 66, 39, 30, 22, 17, 15, 15)
+#: The same for a made-up card of 20 SMs in two GPCs of 10, so that the
+#: plans take other cluster sizes than on an H100.
+SMALL_CLUSTERS = (20, 10, 6, 4, 4, 2, 2, 2)
+CLUSTER_TABLES = pytest.mark.parametrize(
+    "clusters", [H100_CLUSTERS, SMALL_CLUSTERS], ids=["h100", "20-sms"])
 PLAN_CASES = (
     [(64, 2048 >> s, 128, 256, 37, 2, 18, 4) for s in range(3)]
     + [(64, 1024 >> s, 256, 512, 37, 2, 18, 16) for s in range(3)]
@@ -273,8 +295,8 @@ def test_launch_plans_cover_the_work_once(case):
     (channel tile, batch row, time tile) over contiguous CTA ranges and two
     pipes, each (batch row, input position) of each channel tile once;
     every (phase, tap) in one column and one dy offset that the window
-    holds; dW by (tap tile, group x channel tiles) blocks per chunk and row
-    chunks that cover every (batch row, time step) once."""
+    holds; dW by cluster tiles and ranks (:func:`_check_dw_plan`), planned
+    for the clusters an H100 and a small card hold at once."""
     b, t, cin, cout, k, stride, pad, groups = case
     t_out = gc.out_length(t, k, stride, pad, pad)
     cg, og = cin // groups, cout // groups
@@ -297,20 +319,67 @@ def test_launch_plans_cover_the_work_once(case):
     assert sorted(j for _, j in slots) == list(range(k))
     assert len(set(slots)) == len(slots)
 
-    pw = gc._plan_dw(b, cin, cout, k, stride, pad, t, t_out, groups)
-    assert pw.smem <= 227 * 1024
-    gx, gy, gz = pw.grid
-    cells = [(g, o, c, j) for bx in range(gx) for by in range(gy)
-             for g, os_, cs, js in [pw.block(bx, by)]
-             for o in os_ for c in cs for j in js]
+    for clusters in (H100_CLUSTERS, SMALL_CLUSTERS):
+        _check_dw_plan(gc._plan_dw(b, cin, cout, k, stride, pad, t, t_out,
+                                   groups, clusters))
+
+
+def _check_dw_plan(pw):
+    """``conv_dw_wgmma_kernel``'s plan: every (g, o, c, j) lies in exactly
+    one cluster tile; every (batch row, u) in exactly one rank of each
+    cluster; the reduce slices of the ranks partition the tile's (o, c)
+    rows; the ring, raw buffers and reduce buffer fit shared memory."""
+    b, groups, og, cg, k = pw.B, pw.G, pw.og, pw.cg, pw.K
+    assert 1 <= pw.C <= 8 and pw.grid == pw.n_tiles * pw.C
+    assert pw.n_tiles == groups * pw.n_ot * pw.n_ct * pw.n_parts
+    cells = []
+    for i in range(pw.n_tiles):
+        g, ot, ct, part = pw.tile(i)
+        n_o, n_c = pw.extent(i)
+        cells += [(g, 64 * ot + o, pw.CO * ct + c, j) for o in range(n_o)
+                  for c in range(n_c) for j in pw.taps(part)]
+        slices = [pw.reduce_slice(i, r) for r in range(pw.C)]
+        assert [x for sl in slices for x in sl] == list(range(n_o * n_c))
     assert sorted(cells) == [(g, o, c, j) for g in range(groups)
                              for o in range(og) for c in range(cg)
                              for j in range(k)]
-    tiles = [tl for ch in range(gz) for tl in pw.row_tiles(ch)]
-    assert tiles == list(range(pw.n_rtiles))
-    assert all(pw.row_tiles(ch) for ch in range(gz))
-    rows = [row for tl in tiles for row in pw.rows(tl)]
-    assert rows == [(bb, u) for bb in range(b) for u in range(t_out)]
+    ranks = [pw.rank_rows(r) for r in range(pw.C)]
+    assert [rt for rr in ranks for rt in rr] == list(range(pw.n_rt))
+    rows = [(bb, u) for rr in ranks for rt in rr
+            for bb, times in [pw.rows(rt)] for u in times]
+    assert rows == [(bb, u) for bb in range(b) for u in range(pw.Tout)]
+    # The parts split the units evenly, each warpgroup holds at most UW of
+    # them; every unit's columns are its taps, and its rows lie in the
+    # window.
+    parts = [pw.part_units(part) for part in range(pw.n_parts)]
+    assert [q for qs in parts for q in qs] == list(range(pw.U))
+    assert max(map(len, parts)) - min(map(len, parts)) <= 1
+    for part in range(pw.n_parts):
+        real = list(pw.units(part, 0)) + list(pw.units(part, 1))
+        assert real == list(parts[part])
+        assert all(len(pw.units(part, wg)) <= pw.UW for wg in (0, 1))
+        for q in real:
+            start = pw.unit_start(part, q)
+            plane, row = divmod(start, pw.C8 * pw.V)
+            assert plane % pw.R == 0 and row + pw.BT <= pw.V
+        taps = [j for q in real for r in range(pw.R)
+                for j in [(q // pw.n_pg) * pw.stride + (q % pw.n_pg) * pw.R + r]
+                if (q % pw.n_pg) * pw.R + r < pw.stride and j < k]
+        assert taps == list(pw.taps(part))
+        assert all(0 <= j - pw.first_row(part) * pw.stride < pw.JP
+                   for j in taps)
+    assert pw.R * pw.CO <= pw.nt_w in (16, 32, 64)
+    assert pw.UW == gc._DW_UNITS[pw.nt_w]
+    assert pw.smem <= 227 * 1024 and 2 <= pw.n_slots <= 4
+    assert pw.slot_bytes >= 64 * pw.dy_pitch * 2 + pw.planes * pw.C8 * pw.V * 16
+    assert pw.win_off == 64 * pw.dy_pitch * 2 and pw.dy_pitch >= pw.BT + 8
+    assert pw.raw_off == pw.n_slots * pw.slot_bytes
+    assert pw.smem >= 256 + pw.raw_off + 2 * pw.CO * pw.raw_pitch * 2
+    assert pw.smem >= 256 + 64 * pw.CO * pw.JP * 4
+    assert pw.raw_pitch >= 8 * pw.n_x8 and pw.raw_pitch % 64 == 8
+    # The raw chunks from t0 rounded down to 8 cover the window.
+    assert all(8 * pw.n_x8 >= pw.stride * pw.V + t0 % 8 for t0 in range(8))
+    assert (pw.b_lbo, pw.b_sbo) == (8, pw.V)
 
 
 def _layout_ids(plan, shape):
@@ -413,7 +482,7 @@ EMULATED = ([(2, *case[1:]) for case in PLAN_CASES[:6]] + CASES
 
 @pytest.mark.parametrize("kind", ["fwd", "dx"])
 @pytest.mark.parametrize("case", EMULATED)
-def test_schedule_emulation_matches_plain(case, kind):
+def test_schedule_emulation_matches_plain(case, kind, one_thread):
     """The wgmma kernels' own index arithmetic (CTA ranges, pipes, window
     planes and rows, descriptor row shifts, chunks, fused-phase columns),
     run in f32 on the CPU, equals the plain forward or dX within 1e-5
@@ -439,3 +508,68 @@ def test_schedule_emulation_matches_plain(case, kind):
     assert err <= 1e-5, err
     if case[4] == 41 and case[5] in (1, 4) and cin >= 512:
         assert not plan.resident or kind == "dx"
+
+
+@CLUSTER_TABLES
+@pytest.mark.parametrize("case", EMULATED)
+def test_dw_emulation_matches_plain(case, clusters, one_thread):
+    """``conv_dw_wgmma_kernel``'s own index arithmetic (clusters and ranks,
+    row tiles, the staged channel-last window, the register A rows, the
+    MN-major descriptor reads per unit, the fixed-order on-chip reduce),
+    run in f32 on the CPU, equals the plain dW within 1e-5 relative."""
+    b, t, cin, cout, k, stride, pad, groups = case
+    t_out = gc.out_length(t, k, stride, pad, pad)
+    rng = np.random.default_rng(sum(case))
+    x = torch.from_numpy(rng.normal(size=(b, cin, t)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(b, cout, t_out))
+                          .astype(np.float32))
+    plan = gc._plan_dw(b, cin, cout, k, stride, pad, t, t_out, groups,
+                       clusters)
+    got = gc.emulate_dw(x, dy, plan)
+    want = gc.conv_dw_plain(x, dy, k, stride, pad, pad, groups)
+    assert got.shape == want.shape
+    err = (got - want).abs().max() / want.abs().max()
+    assert err <= 1e-5, err
+
+
+@pytest.mark.parametrize("case", [PLAN_CASES[0], PLAN_CASES[3], CASES[0],
+                                  CASES[3], K_BELOW_STRIDE,
+                                  (1, 128, 512, 1024, 41, 4, 20, 16)])
+def test_dw_descriptor_reads_every_tap(case, one_thread):
+    """``_desc_read_mn`` over a staged window, at each unit's start and k16
+    step, gives ``x[c, u*s + j - pad_l]`` exactly for every tap ``j`` and
+    channel ``c`` of the unit's columns (zero outside x), and its A rows are
+    ``dy[o, u]``."""
+    b, t, cin, cout, k, stride, pad, groups = case
+    b = min(b, 2)
+    t_out = gc.out_length(t, k, stride, pad, pad)
+    rng = np.random.default_rng(sum(case))
+    x = torch.from_numpy(rng.normal(size=(b, cin, t)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(b, cout, t_out))
+                          .astype(np.float32))
+    p = gc._plan_dw(b, cin, cout, k, stride, pad, t, t_out, groups,
+                    H100_CLUSTERS)
+    xp = F.pad(x, (pad, p.stride * (p.BT + p.V) + k))
+    cols = torch.arange(p.nt_w)
+    for i in (0, p.n_tiles - 1):
+        g, ot, ct, part = p.tile(i)
+        n_o, n_c = p.extent(i)
+        for rt in (0, p.n_rt - 1):
+            bb, times = p.rows(rt)
+            win, dyt = gc._stage_dw(x, dy, p, i, rt)
+            o0 = g * p.og + 64 * ot
+            assert torch.equal(dyt[:n_o, :len(times)],
+                               dy[bb, o0:o0 + n_o, times.start:times.stop])
+            for q in p.part_units(part):
+                m, pg = divmod(q, p.n_pg)
+                j = m * stride + pg * p.R + cols // p.CO
+                c = cols % p.CO
+                ok = (pg * p.R + cols // p.CO < stride) & (j < k) & (c < n_c)
+                for ks in range(p.BT // 16):
+                    got = gc._desc_read_mn(win, p.unit_start(part, q)
+                                           + 16 * ks, p.b_lbo, p.b_sbo,
+                                           p.nt_w)
+                    u = times.start + 16 * ks + torch.arange(16)
+                    want = xp[bb, (g * p.cg + p.CO * ct + c[ok])[:, None],
+                              u[None] * stride + j[ok, None]]
+                    assert torch.equal(got[ok], want)
