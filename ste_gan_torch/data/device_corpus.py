@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ste_gan_torch import constants as C
+from ste_gan_torch.utils.profiling import span
 
 
 class DeviceCorpus:
@@ -127,22 +128,23 @@ class DeviceCorpus:
         ``rows``/``starts`` are ``[B]`` integer tensors on that device;
         output shapes and values match ``ste_gan_collate(items, "train",
         starts=starts)`` for ``items = [dataset[r] for r in rows]`` (modulo
-        ``float_dtype``)."""
-        rows = rows.long()
-        starts = starts.long()
-        r = rows[:, None]
-        t = starts[:, None] + self._frame_offsets           # [B, frames]
-        batch = {
-            C.DataType.SPEECH_UNITS: self.speech_units[r, t],
-            C.DataType.PHONEMES: self.phonemes[r, t],
-            C.DataType.REAL_EMG: self.emg[
-                r, starts[:, None] * self.hopsize + self._emg_offsets],
-            C.DataType.SESSION_INDEX: self.session_index[rows],
-            C.DataType.SPEAKING_MODE_INDEX: self.speaking_mode_index[rows],
-        }
-        if self.mfccs is not None:
-            batch[C.DataType.MFCCS] = self.mfccs[
-                r, 2 * starts[:, None] + self._mfcc_offsets]
+        ``float_dtype``). Runs inside the ``feed/gather`` span."""
+        with span("feed/gather"):
+            rows = rows.long()
+            starts = starts.long()
+            r = rows[:, None]
+            t = starts[:, None] + self._frame_offsets           # [B, frames]
+            batch = {
+                C.DataType.SPEECH_UNITS: self.speech_units[r, t],
+                C.DataType.PHONEMES: self.phonemes[r, t],
+                C.DataType.REAL_EMG: self.emg[
+                    r, starts[:, None] * self.hopsize + self._emg_offsets],
+                C.DataType.SESSION_INDEX: self.session_index[rows],
+                C.DataType.SPEAKING_MODE_INDEX: self.speaking_mode_index[rows],
+            }
+            if self.mfccs is not None:
+                batch[C.DataType.MFCCS] = self.mfccs[
+                    r, 2 * starts[:, None] + self._mfcc_offsets]
         return batch
 
 

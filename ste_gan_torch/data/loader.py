@@ -22,6 +22,7 @@ import torch
 from ste_gan_torch import constants as C
 from ste_gan_torch.data.collate import ste_gan_collate
 from ste_gan_torch.data.dataset import EMGDataset
+from ste_gan_torch.utils.profiling import span
 
 
 class DataLoader:
@@ -139,8 +140,9 @@ class DataLoader:
 class Prefetcher:
     """Background-thread prefetch of an iterator (the analogue of the
     reference's num_workers=2 async loading; ste_gan/constants.py:54).
-    When the consumer stops early (``break``, ``return``, an exception), the
-    worker stops too and is joined."""
+    The consumer's wait for the next item is the ``feed/wait`` span
+    (``utils/profiling.py``). When the consumer stops early (``break``,
+    ``return``, an exception), the worker stops too and is joined."""
 
     _SENTINEL = object()
 
@@ -176,7 +178,8 @@ class Prefetcher:
         thread.start()
         try:
             while True:
-                item = q.get()
+                with span("feed/wait"):
+                    item = q.get()
                 if item is self._SENTINEL:
                     if error:
                         raise error[0]

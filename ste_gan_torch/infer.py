@@ -43,6 +43,7 @@ from ste_gan_torch.device import resolve_device
 from ste_gan_torch.models.emg_encoder import init_emg_encoder
 from ste_gan_torch.models.generator import (EMGGeneratorGanTTS,
                                             init_emg_generator)
+from ste_gan_torch.utils.profiling import add, span
 
 #: Per-side receptive field of the generator stack in input frames, the
 #: streaming context (the JAX package's value).
@@ -165,12 +166,16 @@ class EMGSynthesizer:
                           num_valid) -> torch.Tensor:
         """A batch with per-row valid lengths: ``[B, Tpad, D]`` + valid
         ``[B]`` -> ``[B, upsample*Tpad, C]``; row ``b`` is exact up to
-        ``upsample*valid[b]`` (its padded frames are masked)."""
-        feats = self._features(feats)
-        b = feats.shape[0]
-        return self._forward(feats, self._index(session_idx, b),
-                             self._index(mode_idx, b),
-                             self._index(num_valid, b))
+        ``upsample*valid[b]`` (its padded frames are masked). The copies
+        to the device run in the ``synth/h2d`` span, the generator's
+        launches in ``synth/forward``."""
+        with span("synth/h2d"):
+            feats = self._features(feats)
+            b = feats.shape[0]
+            index = (self._index(session_idx, b), self._index(mode_idx, b),
+                     self._index(num_valid, b))
+        with span("synth/forward"):
+            return self._forward(feats, *index)
 
     def synthesize(self, feats: np.ndarray, session_idx: int,
                    mode_idx: int = 0) -> np.ndarray:
@@ -234,7 +239,13 @@ def convert_dataset(synth: EMGSynthesizer, dataset,
     length; each group runs in stacked batches of at most ``max_batch``
     rows with per-row session, speaking mode and valid length (the padded
     frames are masked). Returns, in dataset order, ``{utt_id, fake_emg
-    [upsample*T, C] numpy, session_id}``."""
+    [upsample*T, C] numpy, session_id}``.
+
+    Per batch, the spans ``synth/pack`` (the numpy batch), ``synth/h2d``,
+    ``synth/forward``, ``synth/fetch`` (the copy back, which waits for the
+    device) and ``synth/unpack``, and the counters ``synth/batches``,
+    ``synth/valid_frames`` and ``synth/computed_frames`` (rows times the
+    padded length) of ``utils/profiling.py``."""
     up = synth.upsample
     items = [dataset[i] for i in range(len(dataset))]
     order = sorted(range(len(items)),
@@ -249,26 +260,32 @@ def convert_dataset(synth: EMGSynthesizer, dataset,
     for padded, indices in groups.items():
         for start in range(0, len(indices), max_batch):
             chunk = indices[start:start + max_batch]
-            feats = np.zeros((len(chunk), padded,
-                              items[chunk[0]][feature_key].shape[-1]),
-                             np.float32)
-            valid = np.zeros((len(chunk),), np.int64)
-            sess = np.zeros((len(chunk),), np.int64)
-            mode = np.zeros((len(chunk),), np.int64)
-            for row, i in enumerate(chunk):
-                f = items[i][feature_key]
-                feats[row, : len(f)] = f
-                valid[row] = len(f)
-                sess[row] = int(items[i][C.DataType.SESSION_INDEX])
-                mode[row] = int(items[i][C.DataType.SPEAKING_MODE_INDEX])
+            with span("synth/pack"):
+                feats = np.zeros((len(chunk), padded,
+                                  items[chunk[0]][feature_key].shape[-1]),
+                                 np.float32)
+                valid = np.zeros((len(chunk),), np.int64)
+                sess = np.zeros((len(chunk),), np.int64)
+                mode = np.zeros((len(chunk),), np.int64)
+                for row, i in enumerate(chunk):
+                    f = items[i][feature_key]
+                    feats[row, : len(f)] = f
+                    valid[row] = len(f)
+                    sess[row] = int(items[i][C.DataType.SESSION_INDEX])
+                    mode[row] = int(items[i][C.DataType.SPEAKING_MODE_INDEX])
             emg = synth.synthesize_padded(feats, sess, mode, valid)
-            emg = emg.float().cpu().numpy()
-            for row, i in enumerate(chunk):
-                results[i] = {
-                    C.DataType.UTT_ID: items[i][C.DataType.UTT_ID],
-                    C.DataType.FAKE_EMG: emg[row, : up * valid[row]],
-                    C.DataType.SESSION_ID: items[i][C.DataType.SESSION_ID],
-                }
+            with span("synth/fetch"):
+                emg = emg.float().cpu().numpy()
+            with span("synth/unpack"):
+                for row, i in enumerate(chunk):
+                    results[i] = {
+                        C.DataType.UTT_ID: items[i][C.DataType.UTT_ID],
+                        C.DataType.FAKE_EMG: emg[row, : up * valid[row]],
+                        C.DataType.SESSION_ID: items[i][C.DataType.SESSION_ID],
+                    }
+            add("synth/batches", 1)
+            add("synth/valid_frames", int(valid.sum()))
+            add("synth/computed_frames", len(chunk) * padded)
     return results
 
 

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ste_gan_torch.ops import build
+from ste_gan_torch.utils.profiling import span
 
 _INF = float("inf")
 
@@ -234,7 +235,8 @@ def dtw_alignment_batched(costs: torch.Tensor, ends: torch.Tensor
                           ) -> torch.Tensor:
     """Alignments ``[S, T1]`` int32 of ``costs [S, T1, T2]`` f32 from the
     end cells ``ends [S, 2]`` int32 (``(-1, -1)`` or any negative entry:
-    an empty slot). No gradient flows through an alignment."""
+    an empty slot). No gradient flows through an alignment. Runs inside
+    the ``dtw`` span (``utils/profiling.py``)."""
     if costs.dim() != 3 or ends.shape != (costs.shape[0], 2):
         raise ValueError(f"costs {tuple(costs.shape)} and ends "
                          f"{tuple(ends.shape)}: want [S, T1, T2] and [S, 2]")
@@ -243,8 +245,11 @@ def dtw_alignment_batched(costs: torch.Tensor, ends: torch.Tensor
                         f"float32 and int32")
     if ends.device != costs.device:
         raise ValueError("costs and ends lie on different devices")
-    costs = costs.detach().contiguous()
-    ends = ends.contiguous()
+    with span("dtw"):
+        return _alignment(costs.detach().contiguous(), ends.contiguous())
+
+
+def _alignment(costs: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
     if costs.device.type == "cpu":
         return dtw_alignment_plain(costs, ends)
     if costs.device.type != "cuda":

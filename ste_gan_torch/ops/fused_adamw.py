@@ -28,6 +28,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from ste_gan_torch.ops import build
+from ste_gan_torch.utils.profiling import span
 
 #: Elements per block of the kernel.
 CHUNK = 32768
@@ -144,8 +145,13 @@ def _launch(state: AdamWState, grads: List[torch.Tensor]) -> None:
 
 
 def fused_adamw_(state: AdamWState, grads: Sequence[torch.Tensor]) -> None:
-    """One AdamW step over every leaf of ``state``, in place."""
-    grads = list(grads)
+    """One AdamW step over every leaf of ``state``, in place, inside the
+    ``adamw`` span (``utils/profiling.py``)."""
+    with span("adamw"):
+        _fused_adamw(state, list(grads))
+
+
+def _fused_adamw(state: AdamWState, grads: List[torch.Tensor]) -> None:
     if len(grads) != len(state.params):
         raise ValueError(f"{len(grads)} gradients for {len(state.params)} "
                          f"parameters")

@@ -4,12 +4,11 @@
 
 Sets up the main path that ``chip_smoke.py`` times
 (:func:`ste_gan_torch.train.gan.main_path`), takes 3 warm-up steps, times
-``--steps`` steps with the host clock around ``synchronize``, then traces the
-same number of steps with ``torch.profiler`` and prints the device time per
-step by kernel (the top 40, then every hand-written kernel of the port), the
-traced step's device busy share, and the card's name and power limit. Tracing slows the host, so the traced step's idle share is an
-upper bound on the untraced step's; the untraced estimate divides the traced
-device time by the untraced wall time of the other window.
+``--steps`` steps with the host clock around ``synchronize`` and prints the
+host milliseconds a step of each phase's span (``utils/profiling.py``),
+then traces the same number of steps with ``torch.profiler`` and prints the
+device time per step by kernel (the top 40, then every hand-written kernel
+of the port) and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -20,6 +19,7 @@ import torch
 
 from ste_gan_torch.device import card_line
 from ste_gan_torch.train import gan as tgan
+from ste_gan_torch.utils import profiling
 
 
 #: The CUDA kernels of ``ste_gan_torch/csrc``, listed whatever their rank.
@@ -46,11 +46,13 @@ def main(argv=None) -> None:
     for _ in range(3):
         state, _ = step(state, batch)
     torch.cuda.synchronize()
+    before = profiling.counters()
     t0 = time.perf_counter()
     for _ in range(args.steps):
         state, _ = step(state, batch)
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / args.steps
+    phases = profiling.since(before)
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -71,11 +73,11 @@ def main(argv=None) -> None:
     lines = [f"card: {card}",
              f"step: {wall_ms:.2f} ms (host clock, untraced), "
              f"{traced_ms:.2f} ms traced",
-             f"device busy: {busy:.2f} ms/step; traced step idle "
-             f"{100 - 100 * busy / traced_ms:.1f} % (measured, upper bound); "
-             f"untraced step idle {100 - 100 * busy / wall_ms:.1f} % "
-             f"(estimate from the two windows)",
-             f"{'ms/step':>9}  {'share':>6}  {'calls/step':>10}  kernel"]
+             "host ms/step by span (untraced):"]
+    lines += [f"{1e3 * total / args.steps:9.3f}  {name}"
+              for name, (total, _) in sorted(phases.items())]
+    lines += [f"device busy: {busy:.2f} ms/step (traced)",
+              f"{'ms/step':>9}  {'share':>6}  {'calls/step':>10}  kernel"]
     def row(name, count, ms):
         return (f"{ms:9.3f}  {100 * ms / busy:5.1f}%  "
                 f"{count / args.steps:10.1f}  {name[:110]}")

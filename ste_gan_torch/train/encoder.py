@@ -101,6 +101,7 @@ from ste_gan_torch.train.encoder_data import (
     EncoderDeviceCorpus, SizeAwareSampler, fold_encoder_batch,
     windows_needed)
 from ste_gan_torch.utils.logging_utils import MetricLogger, setup_run_logging
+from ste_gan_torch.utils.profiling import span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -297,7 +298,11 @@ def make_encoder_train_step(model: EMGEncoderTransformer, max_samples: int,
     gathered over ``mesh.data``, the last stage's loss alone is
     differentiated (``last_stage_only``), and the gradients are summed as
     ``allreduce_stage_grads_`` says. The step updates this rank's set:
-    ``stage_parameters`` (``group`` is unused)."""
+    ``stage_parameters`` (``group`` is unused).
+
+    Spans (``utils/profiling.py``): ``enc/forward``, ``enc/loss`` (with
+    ``dtw`` inside) and ``enc/backward`` around the unpipelined step's
+    phases, ``adamw`` inside the update."""
     if pipeline is not None:
         return _pipelined_train_step(model, max_samples, silent_pred_frames,
                                      *pipeline)
@@ -307,15 +312,18 @@ def make_encoder_train_step(model: EMGEncoderTransformer, max_samples: int,
     def train_step(state: EncoderTrainState, batch: Batch
                    ) -> Tuple[EncoderTrainState, Dict[str, torch.Tensor]]:
         shift = random_shift(state.shift_rng)
-        windows = mesh.constrain_batch({"w": batch["emg_windows"]}, rank,
-                                       size)["w"]
-        su, ph = model(windows, train=True, shift=shift,
-                       generator=state.dropout_rng, group=group)
-        su, ph = mesh.gather_rows(su, group), mesh.gather_rows(ph, group)
-        loss, counters = _train_loss(model, su, ph, batch, max_samples,
-                                     silent_pred_frames)
-        grads = mesh.allreduce_grads_(torch.autograd.grad(loss, params), group,
-                                      average=False)
+        with span("enc/forward"):
+            windows = mesh.constrain_batch({"w": batch["emg_windows"]}, rank,
+                                           size)["w"]
+            su, ph = model(windows, train=True, shift=shift,
+                           generator=state.dropout_rng, group=group)
+            su, ph = mesh.gather_rows(su, group), mesh.gather_rows(ph, group)
+        with span("enc/loss"):
+            loss, counters = _train_loss(model, su, ph, batch, max_samples,
+                                         silent_pred_frames)
+        with span("enc/backward"):
+            grads = mesh.allreduce_grads_(torch.autograd.grad(loss, params),
+                                          group, average=False)
         fused_adamw_(state.opt, grads)
         state.step += 1
         return state, {"loss": loss.detach(), **counters}

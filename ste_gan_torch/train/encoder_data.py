@@ -25,6 +25,7 @@ import torch
 
 from ste_gan_torch import constants as C
 from ste_gan_torch import emg_encoder_constants as EC
+from ste_gan_torch.utils.profiling import span
 
 
 class SizeAwareSampler:
@@ -274,80 +275,82 @@ class EncoderDeviceCorpus:
         rows[:num_samples]], ...)`` on the corpus's device, field for field
         (floats in the corpus's ``float_dtype``). ``rows`` is
         ``[max_samples]`` int (entries past ``num_samples`` ignored),
-        ``num_samples`` a 0-d int tensor."""
-        dev = self.emg_len.device
-        window = seq_len * 8
-        ratio = self.emg_ratio
-        frames_per_win = window // ratio
+        ``num_samples`` a 0-d int tensor. Runs inside the ``enc/fold``
+        span."""
+        with span("enc/fold"):
+            dev = self.emg_len.device
+            window = seq_len * 8
+            ratio = self.emg_ratio
+            frames_per_win = window // ratio
 
-        num = num_samples.to(dev, torch.int64)
-        arange_b = torch.arange(max_samples, device=dev)
-        valid = arange_b < num
-        r = torch.where(valid, rows.to(dev, torch.int64), 0)
+            num = num_samples.to(dev, torch.int64)
+            arange_b = torch.arange(max_samples, device=dev)
+            valid = arange_b < num
+            r = torch.where(valid, rows.to(dev, torch.int64), 0)
 
-        # EMG stream: batch offsets by cumsum, position -> sample by
-        # searchsorted, one gather from the flat corpus.
-        e_len = torch.where(valid, self.emg_len[r], 0)
-        cum = torch.cat([e_len.new_zeros(1), torch.cumsum(e_len, 0)])
-        total = cum[-1]
-        pos = torch.arange(n_win * window, device=dev)
-        k = (torch.searchsorted(cum, pos, right=True) - 1).clamp(
-            0, max_samples - 1)
-        idx = self.emg_start[r][k] + (pos - cum[k])
-        in_range = pos < total
-        emg = self.emg_flat[idx.clamp(0, self.emg_flat.shape[0] - 1)]
-        emg = torch.where(in_range[:, None], emg, 0)
-        emg_windows = emg.reshape(n_win, window, -1)
+            # EMG stream: batch offsets by cumsum, position -> sample by
+            # searchsorted, one gather from the flat corpus.
+            e_len = torch.where(valid, self.emg_len[r], 0)
+            cum = torch.cat([e_len.new_zeros(1), torch.cumsum(e_len, 0)])
+            total = cum[-1]
+            pos = torch.arange(n_win * window, device=dev)
+            k = (torch.searchsorted(cum, pos, right=True) - 1).clamp(
+                0, max_samples - 1)
+            idx = self.emg_start[r][k] + (pos - cum[k])
+            in_range = pos < total
+            emg = self.emg_flat[idx.clamp(0, self.emg_flat.shape[0] - 1)]
+            emg = torch.where(in_range[:, None], emg, 0)
+            emg_windows = emg.reshape(n_win, window, -1)
 
-        # The flattened 50 Hz frame axis: the same at frame granularity.
-        p_len = e_len // ratio
-        fcum = torch.cat([p_len.new_zeros(1), torch.cumsum(p_len, 0)])
-        fpos = torch.arange(n_win * frames_per_win, device=dev)
-        fk = (torch.searchsorted(fcum, fpos, right=True) - 1).clamp(
-            0, max_samples - 1)
-        f_in = fpos < fcum[-1]
-        frame_sample_id = torch.where(f_in, fk, -1).to(torch.int32)
+            # The flattened 50 Hz frame axis: the same at frame granularity.
+            p_len = e_len // ratio
+            fcum = torch.cat([p_len.new_zeros(1), torch.cumsum(p_len, 0)])
+            fpos = torch.arange(n_win * frames_per_win, device=dev)
+            fk = (torch.searchsorted(fcum, fpos, right=True) - 1).clamp(
+                0, max_samples - 1)
+            f_in = fpos < fcum[-1]
+            frame_sample_id = torch.where(f_in, fk, -1).to(torch.int32)
 
-        sil = valid & self.silent_flag[r]
-        voiced_frame = f_in & ~sil[fk]
-        fidx = (self.fr_start[r][fk] + (fpos - fcum[fk])).clamp(
-            0, self.su_flat.shape[0] - 1)
-        su = torch.where(voiced_frame[:, None], self.su_flat[fidx], 0)
-        ph = torch.where(voiced_frame, self.ph_flat[fidx], 0)
-
-        batch = {
-            "emg_windows": emg_windows,
-            "su_targets": su,
-            "ph_targets": ph.to(torch.int32),
-            "frame_sample_id": frame_sample_id,
-            "silent": sil,
-            "num_samples": num.to(torch.int32),
-        }
-        if max_silent > 0:
-            # Scatter the batch's silent samples into fixed slots in batch
-            # order; updates aimed past the last slot land in a spare one
-            # that is cut off (``mode="drop"`` in the JAX fold).
-            slot = torch.cumsum(sil.long(), 0) - 1
-            tgt = torch.where(sil, slot, max_silent).clamp(max=max_silent)
-
-            def scat(vals):
-                out = vals.new_zeros(max_silent + 1)
-                return out.scatter_(0, tgt, vals)[:max_silent]
-
-            slot_row = scat(r)
-            slot_active = scat(sil.long()).bool()
-            t_len = torch.where(slot_active, self.fr_len[slot_row], 0)
-            t_idx = torch.arange(silent_target_frames, device=dev)
-            sidx = (self.fr_start[slot_row][:, None] + t_idx).clamp(
+            sil = valid & self.silent_flag[r]
+            voiced_frame = f_in & ~sil[fk]
+            fidx = (self.fr_start[r][fk] + (fpos - fcum[fk])).clamp(
                 0, self.su_flat.shape[0] - 1)
-            keep = t_idx[None, :] < t_len[:, None]
-            batch.update({
-                "silent_su_targets": torch.where(keep[..., None],
-                                                 self.su_flat[sidx], 0),
-                "silent_ph_targets": torch.where(keep, self.ph_flat[sidx],
-                                                 0).to(torch.int32),
-                "silent_target_len": t_len.to(torch.int32),
-                "silent_pred_start": scat(fcum[:-1]).to(torch.int32),
-                "silent_pred_len": scat(p_len).to(torch.int32),
-            })
+            su = torch.where(voiced_frame[:, None], self.su_flat[fidx], 0)
+            ph = torch.where(voiced_frame, self.ph_flat[fidx], 0)
+
+            batch = {
+                "emg_windows": emg_windows,
+                "su_targets": su,
+                "ph_targets": ph.to(torch.int32),
+                "frame_sample_id": frame_sample_id,
+                "silent": sil,
+                "num_samples": num.to(torch.int32),
+            }
+            if max_silent > 0:
+                # Scatter the batch's silent samples into fixed slots in batch
+                # order; updates aimed past the last slot land in a spare one
+                # that is cut off (``mode="drop"`` in the JAX fold).
+                slot = torch.cumsum(sil.long(), 0) - 1
+                tgt = torch.where(sil, slot, max_silent).clamp(max=max_silent)
+
+                def scat(vals):
+                    out = vals.new_zeros(max_silent + 1)
+                    return out.scatter_(0, tgt, vals)[:max_silent]
+
+                slot_row = scat(r)
+                slot_active = scat(sil.long()).bool()
+                t_len = torch.where(slot_active, self.fr_len[slot_row], 0)
+                t_idx = torch.arange(silent_target_frames, device=dev)
+                sidx = (self.fr_start[slot_row][:, None] + t_idx).clamp(
+                    0, self.su_flat.shape[0] - 1)
+                keep = t_idx[None, :] < t_len[:, None]
+                batch.update({
+                    "silent_su_targets": torch.where(keep[..., None],
+                                                     self.su_flat[sidx], 0),
+                    "silent_ph_targets": torch.where(keep, self.ph_flat[sidx],
+                                                     0).to(torch.int32),
+                    "silent_target_len": t_len.to(torch.int32),
+                    "silent_pred_start": scat(fcum[:-1]).to(torch.int32),
+                    "silent_pred_len": scat(p_len).to(torch.int32),
+                })
         return batch

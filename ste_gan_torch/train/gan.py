@@ -26,6 +26,12 @@ backward. The spectral-norm state at a block's entry is restored before its
 recompute, so the power iteration gives the same vectors and ends where the
 forward left it.
 
+Spans (``utils/profiling.py``): ``gan/g_forward``; ``gan/d_update`` (D's
+paired forward, its loss and gradients); ``gan/g_update``, holding
+``gan/g_loss/d_forward``, ``gan/g_loss/multi_td``, ``gan/g_loss/encoder``,
+``gan/g_loss/feature_matching`` and ``gan/g_backward``; ``adamw`` (inside
+the update); ``gan/ema``. The accumulating step opens them per microbatch.
+
 Precision: f32 parameters and optimizer state; modules compute in bf16 when
 ``train.mixed_precision``; losses reduce in f32. Parameters, moments and the
 EMA update in place.
@@ -83,6 +89,7 @@ from ste_gan_torch.ops.fused_adamw import (
     AdamWState, adamw_init, set_learning_rate)
 from ste_gan_torch.parallel.mesh import (
     GradientAllReduce, allreduce_metrics, rank_and_size, round_robin)
+from ste_gan_torch.utils.profiling import span
 from ste_gan_torch.utils.metrics import (
     mean_error, phoneme_accuracy, phoneme_accuracy_no_silence)
 
@@ -279,19 +286,22 @@ def make_train_step(cfg: Config, models: GANModels, group=None,
         loss = torch.zeros((), dtype=torch.float32, device=fake.device)
         aux: Dict[str, torch.Tensor] = {}
         if use_adv or use_fm:
-            fmaps_fake, fmaps_real = disc(fake, pair=real)
+            with span("gan/g_loss/d_forward"):
+                fmaps_fake, fmaps_real = disc(fake, pair=real)
         if use_adv:
             adv = generator_adversarial_loss(fmaps_fake)
             loss = loss + adv
             aux["loss/adversarial"] = adv
         if use_td:
-            td = multi_time_domain_loss(real, fake)
+            with span("gan/g_loss/multi_td"):
+                td = multi_time_domain_loss(real, fake)
             loss = loss + t.loss_multi_td_weight * td
             aux["loss/multi_td"] = td
         if use_su or use_ph:
-            su_loss, ph_loss, counts = emg_encoder_loss(
-                enc, fake, batch[C.DataType.SPEECH_UNITS],
-                batch[C.DataType.PHONEMES])
+            with span("gan/g_loss/encoder"):
+                su_loss, ph_loss, counts = emg_encoder_loss(
+                    enc, fake, batch[C.DataType.SPEECH_UNITS],
+                    batch[C.DataType.PHONEMES])
             if use_su:
                 loss = loss + t.loss_speech_unit_weight * su_loss
                 aux["loss/speech_unit"] = su_loss
@@ -308,7 +318,8 @@ def make_train_step(cfg: Config, models: GANModels, group=None,
             loss = loss + t.loss_waveform_weight * wave
             aux["loss/waveform"] = wave
         if use_fm:
-            fm = feature_matching_loss(fmaps_fake, fmaps_real)
+            with span("gan/g_loss/feature_matching"):
+                fm = feature_matching_loss(fmaps_fake, fmaps_real)
             loss = loss + t.loss_feat_match_weight * fm
             aux["loss/feature_matching"] = fm
         return loss, aux
@@ -320,17 +331,20 @@ def make_train_step(cfg: Config, models: GANModels, group=None,
 
     def d_grads(fake, real):
         """D loss on the detached fake and its parameter gradients."""
-        disc.requires_grad_(True)
-        loss_d = d_loss_fn(fake, real)
-        grads = torch.autograd.grad(loss_d, disc_params)
-        disc.requires_grad_(False)
+        with span("gan/d_update"):
+            disc.requires_grad_(True)
+            loss_d = d_loss_fn(fake, real)
+            grads = torch.autograd.grad(loss_d, disc_params)
+            disc.requires_grad_(False)
         return loss_d.detach(), grads
 
     def g_grads(fake, real, batch):
         """G losses through the frozen D and the generator gradients."""
-        disc.requires_grad_(False)
-        loss_g, aux = g_loss_fn(fake, real, batch)
-        grads = torch.autograd.grad(loss_g, gen_params)
+        with span("gan/g_update"):
+            disc.requires_grad_(False)
+            loss_g, aux = g_loss_fn(fake, real, batch)
+            with span("gan/g_backward"):
+                grads = torch.autograd.grad(loss_g, gen_params)
         return loss_g.detach(), {k: v.detach() for k, v in aux.items()}, grads
 
     def ema_update(state: GANTrainState) -> None:
@@ -339,7 +353,7 @@ def make_train_step(cfg: Config, models: GANModels, group=None,
         if state.gen_ema is None:
             return
         d = _ema_decay(ema_decay, state.step)
-        with torch.no_grad():
+        with span("gan/ema"), torch.no_grad():
             torch._foreach_mul_(state.gen_ema, float(d))
             torch._foreach_add_(state.gen_ema, state.opt_g.params,
                                 alpha=float(np.float32(1.0) - d))
@@ -350,7 +364,8 @@ def make_train_step(cfg: Config, models: GANModels, group=None,
         metrics: Dict[str, torch.Tensor] = {}
 
         # ---- Generator forward, once; its graph serves the G update. ----
-        fake = gen_fwd(batch)
+        with span("gan/g_forward"):
+            fake = gen_fwd(batch)
 
         # ---- Discriminator update on the detached fake. ----
         if use_adv:
@@ -379,7 +394,8 @@ def make_train_step(cfg: Config, models: GANModels, group=None,
             loss_sum, grad_sum = None, None
             for mb in micro:
                 sn_load(incoming)
-                fake = gen_fwd_nograd(mb)
+                with span("gan/g_forward"):
+                    fake = gen_fwd_nograd(mb)
                 loss_d, grads = d_grads(fake, mb[C.DataType.REAL_EMG].float())
                 if grad_sum is None:
                     loss_sum, grad_sum = loss_d, list(grads)
@@ -395,7 +411,8 @@ def make_train_step(cfg: Config, models: GANModels, group=None,
         loss_sum, aux_sum, grad_sum = None, None, None
         for mb in micro:
             sn_load(incoming)
-            fake = gen_fwd(mb)
+            with span("gan/g_forward"):
+                fake = gen_fwd(mb)
             loss_g, aux, grads = g_grads(fake, mb[C.DataType.REAL_EMG].float(),
                                          mb)
             if grad_sum is None:

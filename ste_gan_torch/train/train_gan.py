@@ -26,6 +26,9 @@ One continuous prefetched pipeline feeds all epochs. With
 ``train.device_resident_data`` the train split lives on the card and a step
 receives only ``[B]`` crop descriptors; phoneme counters accumulate on the
 card, so the host waits for it only at logging and validation boundaries.
+Each logging boundary also logs ``perf/host_ms/<span>``: the host
+milliseconds a step of each span of ``utils/profiling.py`` (``gan/*``,
+``adamw``, ``feed/wait``, ``feed/gather``) since the last boundary.
 
 Every ``interval_sample`` steps the first ``num_test_samples + 1``
 validation utterances are synthesised with the EMA weights

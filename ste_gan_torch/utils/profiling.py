@@ -1,14 +1,110 @@
-"""Step throughput of the trainer.
+"""Step throughput of the trainer, and the port's spans and counters.
 
-Counterpart of ``ste_gan_tpu/utils/profiling.py::StepTimer``: steps/s,
-ms/step and EMG channel-samples/s per device over the window between two
-logging boundaries, on the host clock. The trainer reads a loss at each
-boundary, which waits for the card, so a window holds finished steps.
+:class:`StepTimer` is the counterpart of
+``ste_gan_tpu/utils/profiling.py::StepTimer``: steps/s, ms/step and EMG
+channel-samples/s per device over the window between two logging
+boundaries, on the host clock. The trainer reads a loss at each boundary,
+which waits for the card, so a window holds finished steps. It also gives
+the host milliseconds a step of every span that ran in the window.
+
+Spans and counters: ``with span("gan/g_forward"):`` adds the block's host
+seconds (``time.perf_counter``) and one call to an in-memory table keyed by
+the span's name; :func:`add` adds a plain value (``synth/batches``, 1) to
+the same table. :func:`counters` snapshots the table as ``{name: (total,
+calls)}``, :func:`since` gives what was added after a snapshot, and
+:func:`reset` clears it. While :func:`tracing` is on, a span also opens
+``torch.profiler.record_function("ste_gan/" + name)``, so a running
+profiler records it in the same trace as the card's kernels, copies and
+fills; spans nest as the calls do. With tracing off a span costs two clock
+reads and a dict update under a lock: no torch call, no wait for the card.
+
+A span's host time is the time the host spends in the block: the launches
+it queues, not the card's work, except where the block itself waits
+(``synth/fetch``, ``feed/wait``).
 """
 from __future__ import annotations
 
+import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
+
+#: Prefix of the spans' names in a profiler trace.
+PREFIX = "ste_gan/"
+
+#: name -> [total, calls]: host seconds of a span, or a counter's sum.
+#: Spans close on more than one thread (a server's batcher, autograd's in a
+#: recompute), so updates and snapshots hold the lock.
+_TABLE: Dict[str, list] = {}
+_LOCK = threading.Lock()
+_TRACING = False
+
+
+def tracing(enabled: bool) -> bool:
+    """Turns the spans' profiler ranges on or off; returns the previous
+    setting."""
+    global _TRACING
+    previous, _TRACING = _TRACING, bool(enabled)
+    return previous
+
+
+class span:
+    """``with span(name):`` times the block into the table (and, while
+    :func:`tracing` is on, marks it ``ste_gan/<name>`` in the trace)."""
+
+    __slots__ = ("name", "_start", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "span":
+        self._range = None
+        if _TRACING:
+            import torch
+
+            self._range = torch.profiler.record_function(PREFIX + self.name)
+            self._range.__enter__()
+        self._start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        add(self.name, time.perf_counter() - self._start)
+        if self._range is not None:
+            self._range.__exit__(*exc)
+
+
+def add(name: str, value: float) -> None:
+    """Adds ``value`` to the counter ``name`` (and one to its calls)."""
+    with _LOCK:
+        entry = _TABLE.get(name)
+        if entry is None:
+            _TABLE[name] = [value, 1]
+        else:
+            entry[0] += value
+            entry[1] += 1
+
+
+def counters() -> Dict[str, Tuple[float, int]]:
+    """A snapshot of the table: ``{name: (total, calls)}``."""
+    with _LOCK:
+        return {name: (entry[0], entry[1]) for name, entry in _TABLE.items()}
+
+
+def since(before: Dict[str, Tuple[float, int]]
+          ) -> Dict[str, Tuple[float, int]]:
+    """What the table gained after the snapshot ``before``: the names
+    called since, with their added totals and calls."""
+    out = {}
+    for name, (total, calls) in counters().items():
+        t0, c0 = before.get(name, (0.0, 0))
+        if calls > c0:
+            out[name] = (total - t0, calls - c0)
+    return out
+
+
+def reset() -> None:
+    """Clears the table."""
+    with _LOCK:
+        _TABLE.clear()
 
 
 class StepTimer:
@@ -17,11 +113,14 @@ class StepTimer:
         self.num_devices = max(1, num_devices)
         self._last_time: Optional[float] = None
         self._last_step: int = 0
+        self._last_counters = counters()
 
     def update(self, step: int) -> Dict[str, float]:
         """Call at logging boundaries; returns throughput scalars for the
-        window since the previous call."""
+        window since the previous call, with ``perf/host_ms/<span>``: each
+        span's host milliseconds a step over the window."""
         now = time.perf_counter()
+        spans = since(self._last_counters)
         out: Dict[str, float] = {}
         if self._last_time is not None and step > self._last_step:
             dt = now - self._last_time
@@ -30,6 +129,9 @@ class StepTimer:
             out["perf/ms_per_step"] = 1e3 * dt / steps
             out["perf/emg_channel_samples_per_sec_per_chip"] = (
                 steps * self.channel_samples_per_step / dt / self.num_devices)
+            out.update({f"perf/host_ms/{name}": 1e3 * total / steps
+                        for name, (total, _) in spans.items()})
         self._last_time = now
         self._last_step = step
+        self._last_counters = counters()
         return out
