@@ -26,6 +26,13 @@ backward. The spectral-norm state at a block's entry is restored before its
 recompute, so the power iteration gives the same vectors and ends where the
 forward left it.
 
+On CUDA, under grad, the generator's and the frozen encoder's forward and
+backward replay from CUDA graphs (``train/graphed.py``) from a signature's
+second call on; the discriminator, every loss, both AdamW launches and the
+EMA stay eager. The CPU, ``train.remat``, tensor-parallel layers and no-grad
+callers keep the eager calls. The accumulating step copies the first
+microbatch's generator gradients, which the next replay would overwrite.
+
 Spans (``utils/profiling.py``): ``gan/g_forward``; ``gan/d_update`` (D's
 paired forward, its loss and gradients); ``gan/g_update``, holding
 ``gan/g_loss/d_forward``, ``gan/g_loss/multi_td``, ``gan/g_loss/encoder``,
@@ -66,6 +73,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from pathlib import Path
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -89,6 +97,7 @@ from ste_gan_torch.ops.fused_adamw import (
     AdamWState, adamw_init, set_learning_rate)
 from ste_gan_torch.parallel.mesh import (
     GradientAllReduce, allreduce_metrics, rank_and_size, round_robin)
+from ste_gan_torch.train.graphed import GraphedCall
 from ste_gan_torch.utils.profiling import span
 from ste_gan_torch.utils.metrics import (
     mean_error, phoneme_accuracy, phoneme_accuracy_no_silence)
@@ -274,8 +283,13 @@ def make_train_step(cfg: Config, models: GANModels, group=None,
             return checkpoint(run, *args, use_reentrant=False)
         return wrapped
 
-    def gen_fwd(batch):
-        return gen(batch[feature_key], batch[C.DataType.SESSION_INDEX],
+    # The generator and the frozen encoder under grad: forward and backward
+    # replayed from CUDA graphs where the call allows it (train/graphed.py).
+    gen_graphed = GraphedCall(gen, capturable=not remat)
+    enc_graphed = GraphedCall(enc, capturable=not remat)
+
+    def gen_fwd(batch, net=gen_graphed):
+        return net(batch[feature_key], batch[C.DataType.SESSION_INDEX],
                    batch[C.DataType.SPEAKING_MODE_INDEX])
 
     def d_loss_fn(fake, real):
@@ -300,7 +314,7 @@ def make_train_step(cfg: Config, models: GANModels, group=None,
         if use_su or use_ph:
             with span("gan/g_loss/encoder"):
                 su_loss, ph_loss, counts = emg_encoder_loss(
-                    enc, fake, batch[C.DataType.SPEECH_UNITS],
+                    enc_graphed, fake, batch[C.DataType.SPEECH_UNITS],
                     batch[C.DataType.PHONEMES])
             if use_su:
                 loss = loss + t.loss_speech_unit_weight * su_loss
@@ -324,7 +338,7 @@ def make_train_step(cfg: Config, models: GANModels, group=None,
             aux["loss/feature_matching"] = fm
         return loss, aux
 
-    gen_fwd_nograd = torch.no_grad()(gen_fwd)
+    gen_fwd_nograd = torch.no_grad()(functools.partial(gen_fwd, net=gen))
     gen_fwd = rematerialised(gen_fwd, spectral=False)
     d_loss_fn = rematerialised(d_loss_fn, spectral=True)
     g_loss_fn = rematerialised(g_loss_fn, spectral=True)
@@ -416,7 +430,10 @@ def make_train_step(cfg: Config, models: GANModels, group=None,
             loss_g, aux, grads = g_grads(fake, mb[C.DataType.REAL_EMG].float(),
                                          mb)
             if grad_sum is None:
-                loss_sum, aux_sum, grad_sum = loss_g, aux, list(grads)
+                # Copies: a replay's gradients live in the graph's buffers,
+                # which the next microbatch's replay overwrites.
+                loss_sum, aux_sum = loss_g, aux
+                grad_sum = [g.clone() for g in grads]
             else:
                 loss_sum = loss_sum + loss_g
                 aux_sum = {k: aux_sum[k] + v for k, v in aux.items()}
