@@ -36,7 +36,8 @@ def main(argv=None) -> Dict:
     from ste_gan_torch import constants as C
     from ste_gan_torch.config import load_config
     from ste_gan_torch.device import resolve_device
-    from ste_gan_torch.export import (encoder_min_frames, export_emg_encoder,
+    from ste_gan_torch.export import (check_exportable_encoder,
+                                      encoder_min_frames, export_emg_encoder,
                                       load_exported, save_exported)
     from ste_gan_torch.export_generator import tf32_off
     from ste_gan_torch.models.emg_encoder import init_emg_encoder
@@ -77,6 +78,7 @@ def main(argv=None) -> Dict:
         return model.to(dev).eval()
 
     encoder = encoder_with(weights)
+    check_exportable_encoder(encoder)
     min_frames = encoder_min_frames(encoder)
     start = time.perf_counter()
     if args.quantize == "int8":

@@ -37,6 +37,11 @@ state-dict layout (``conv_blocks.i``, ``transformer.layers.i``).
 (``transformer.layers.i.moe_ffn``; ``configs/emg_encoder/
 conv_transformer_moe.yaml``); a training forward records each block's
 load-balancing loss, which :meth:`pop_moe_aux_loss` collects.
+
+:class:`EMGEncoderLFM2` (``type: EMGEncoderLFM2``, ``configs/emg_encoder/
+lfm2_8b_a1b.yaml``; no JAX counterpart) keeps the same front end and
+heads around LFM2-8B-A1B's block stack (``models/lfm2.py``), on one
+device.
 """
 from __future__ import annotations
 
@@ -47,6 +52,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ste_gan_torch import constants as C
+from ste_gan_torch.models import lfm2
+from ste_gan_torch.models.lfm2 import (
+    LAYER_TYPES, RMSNorm, lfm2_layers, sparse_blocks)
 from ste_gan_torch.models.transformer import (
     TransformerEncoderLayer, linear, torch_linear)
 from ste_gan_torch.ops.conv import Conv
@@ -147,6 +155,22 @@ class ResBlock(nn.Module):
                                                         tp.comm)
 
 
+def conv_frontend(blocks, x_raw, dtype, train: bool, shift: int,
+                  group=None) -> torch.Tensor:
+    """Shift augmentation and the strided ResBlocks: EMG ``[B, T, C]`` ->
+    ``[B, T/16, model_size]``. ``shift = r`` moves every window left by
+    ``r`` samples and fills its last ``r`` with zeros, as the JAX
+    roll-and-mask does (reference random shift in [0, 8),
+    ste_gan/models/emg_encoder.py:71-75); the caller draws ``r``."""
+    x = x_raw.to(dtype)
+    if train and shift:
+        x = F.pad(x[:, shift:], (0, 0, 0, shift))
+    x = x.transpose(1, 2)
+    for block in blocks:
+        x = block(x, train, group)
+    return x.transpose(1, 2)
+
+
 class EMGEncoderTransformer(nn.Module):
     """EMG ``[B, T, C]`` -> (speech units ``[B, T/16, 256]``, phoneme logits
     ``[B, T/16, 48]``), both f32."""
@@ -186,19 +210,10 @@ class EMGEncoderTransformer(nn.Module):
 
     def _frontend(self, x_raw, train: bool, shift: int,
                   group=None) -> torch.Tensor:
-        """Shift augmentation, strided ResBlocks and the input projection.
-        ``shift = r`` moves every window left by ``r`` samples and fills its
-        last ``r`` with zeros, as the JAX roll-and-mask does (reference
-        random shift in [0, 8), ste_gan/models/emg_encoder.py:71-75); the
-        caller draws ``r``."""
-        dt = self.dtype
-        x = x_raw.to(dt)
-        if train and shift:
-            x = F.pad(x[:, shift:], (0, 0, 0, shift))
-        x = x.transpose(1, 2)
-        for block in self.conv_blocks:
-            x = block(x, train, group)
-        return linear(x.transpose(1, 2), self.w_raw_in, dt)
+        """:func:`conv_frontend` and the input projection."""
+        x = conv_frontend(self.conv_blocks, x_raw, self.dtype, train, shift,
+                          group)
+        return linear(x, self.w_raw_in, self.dtype)
 
     def forward(self, x_raw, train: bool = False, shift: int = 0,
                 generator: Optional[torch.Generator] = None, group=None
@@ -301,14 +316,125 @@ class EMGEncoderTransformer(nn.Module):
         return x.float()
 
 
+class EMGEncoderLFM2(nn.Module):
+    """EMG ``[B, T, C]`` -> (speech units ``[B, T/16, 256]``, phoneme logits
+    ``[B, T/16, 48]``), both f32, through LFM2's block stack
+    (``models/lfm2.py``; LFM2-8B-A1B,
+    https://huggingface.co/LiquidAI/LFM2-8B-A1B/blob/main/config.json).
+
+    The published encoder's front end (four stride-2 BatchNorm ResBlocks at
+    ``model_size``, f32 with cuDNN's TF32 as ``EMGEncoderTransformer``) and
+    ``w_raw_in`` (``model_size -> hidden_size``) feed ``num_hidden_layers``
+    LFM2 layers (``layer_types[:num_hidden_layers]``: gated short convs and
+    causal GQA attention; the first ``num_dense_layers`` feed-forwards dense
+    SwiGLU, the rest ``DroplessMoE``), then a final RMSNorm and the unit and
+    phoneme heads. The LFM2 layers are causal within each window. No
+    dropout. Parameters are f32; every product from ``w_raw_in`` on runs in
+    ``models/lfm2.py``'s ``COMPUTE_DTYPE`` (bf16, the published precision).
+
+    Single device only: ``group`` (data parallelism), tensor and pipeline
+    parallelism are not written for it. A training forward records each
+    sparse block's loads; :meth:`update_expert_bias` moves the expert
+    biases after the optimizer step."""
+
+    def __init__(self, num_ins: int = C.NUM_EMG_CHANNELS,
+                 num_outs: int = C.SPEECH_UNITS_FEAT_SIZE,
+                 num_aux_outs: int = C.NUM_PHONEMES, model_size: int = 768,
+                 num_extra_res_blocks: int = 3, hidden_size: int = 2048,
+                 num_hidden_layers: int = 8,
+                 layer_types=LAYER_TYPES, num_attention_heads: int = 32,
+                 num_key_value_heads: int = 8,
+                 intermediate_size: int = 7168,
+                 moe_intermediate_size: int = 1792,
+                 num_dense_layers: int = 2, num_experts: int = 32,
+                 num_experts_per_tok: int = 4, conv_L_cache: int = 3,
+                 conv_bias: bool = False, norm_eps: float = 1e-5,
+                 rope_theta: float = 1e6, norm_topk_prob: bool = True,
+                 routed_scaling_factor: float = 1.0,
+                 use_expert_bias: bool = True, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if conv_bias:
+            raise ValueError("EMGEncoderLFM2: conv_bias is not written "
+                             "(LFM2-8B-A1B has none)")
+        if len(layer_types) < num_hidden_layers:
+            raise ValueError(f"layer_types names {len(layer_types)} layers, "
+                             f"num_hidden_layers is {num_hidden_layers}")
+        self.dtype = dtype
+        self.compute_dtype = lfm2.COMPUTE_DTYPE
+        self.moe_experts = num_experts
+        self.dropout = 0.0
+        blocks, cin = [], num_ins
+        for _ in range(1 + num_extra_res_blocks):
+            blocks.append(ResBlock(cin, model_size, 2, dtype, generator))
+            cin = model_size
+        self.conv_blocks = nn.ModuleList(blocks)
+        self.w_raw_in = torch_linear(model_size, hidden_size, generator)
+        self.layers = lfm2_layers(
+            layer_types[:num_hidden_layers], num_dense_layers,
+            dim=hidden_size, heads=num_attention_heads,
+            kv_heads=num_key_value_heads, dense_hidden=intermediate_size,
+            expert_hidden=moe_intermediate_size, num_experts=num_experts,
+            top_k=num_experts_per_tok, taps=conv_L_cache, eps=norm_eps,
+            theta=rope_theta, norm_topk_prob=norm_topk_prob,
+            scaling=routed_scaling_factor, use_expert_bias=use_expert_bias,
+            dtype=self.compute_dtype,
+            generator=generator)
+        self.final_norm = RMSNorm(hidden_size, norm_eps)
+        self.w_out = torch_linear(hidden_size, num_outs, generator)
+        self.w_aux = torch_linear(hidden_size, num_aux_outs, generator)
+
+    def _stack(self, x_raw, train: bool, shift: int) -> torch.Tensor:
+        x = conv_frontend(self.conv_blocks, x_raw, self.dtype, train, shift)
+        x = linear(x, self.w_raw_in, self.compute_dtype).float()
+        for layer in self.layers:
+            x = layer(x, train)
+        return self.final_norm(x)
+
+    def forward(self, x_raw, train: bool = False, shift: int = 0,
+                generator: Optional[torch.Generator] = None, group=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``train=True``: shift by ``shift``, batch statistics in the front
+        end (running ones updated in place) and the sparse blocks' loads
+        recorded. ``generator`` is unused (no dropout)."""
+        if group is not None:
+            raise NotImplementedError(
+                "EMGEncoderLFM2 runs on one device: data parallelism over "
+                "its routing and expert biases is not written")
+        x = self._stack(x_raw, train, shift)
+        dt = self.compute_dtype
+        return (linear(x, self.w_out, dt).float(),
+                linear(x, self.w_aux, dt).float())
+
+    def pop_moe_aux_loss(self) -> Optional[torch.Tensor]:
+        """None: the sparse blocks balance by their biases, with no
+        auxiliary loss."""
+        return None
+
+    def update_expert_bias(self) -> None:
+        """Each sparse block's bias update over its last training loads."""
+        for block in sparse_blocks(self.layers):
+            block.update_bias()
+
+    def embed(self, x_raw) -> torch.Tensor:
+        """The final norm's output ``[B, T/16, hidden_size]`` f32 in eval
+        mode (the Fréchet realism metric's embedding space)."""
+        return self._stack(x_raw, False, 0).float()
+
+
+ENCODER_TYPES = {"EMGEncoderTransformer": EMGEncoderTransformer,
+                 "EMGEncoderLFM2": EMGEncoderLFM2}
+
+
 def init_emg_encoder(cfg, dtype=torch.float32,
                      generator: Optional[torch.Generator] = None
-                     ) -> EMGEncoderTransformer:
-    """Factory from config (counterpart of the JAX factory)."""
-    if cfg.emg_encoder.type != "EMGEncoderTransformer":
+                     ) -> nn.Module:
+    """Factory from config (counterpart of the JAX factory; the JAX package
+    has no ``EMGEncoderLFM2``)."""
+    if cfg.emg_encoder.type not in ENCODER_TYPES:
         raise ValueError(f"Unknown EMG encoder type: {cfg.emg_encoder.type}")
     params = dict(cfg.emg_encoder.params or {})
-    return EMGEncoderTransformer(
+    return ENCODER_TYPES[cfg.emg_encoder.type](
         num_ins=cfg.data.num_emg_channels, num_outs=C.SPEECH_UNITS_FEAT_SIZE,
         num_aux_outs=C.NUM_PHONEMES, dtype=dtype, generator=generator,
         **params)

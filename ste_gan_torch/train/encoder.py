@@ -64,6 +64,12 @@ raises).
 mixture-of-experts encoder: the step adds ``MOE_AUX_WEIGHT`` (0.01) times
 the sum of the blocks' load-balancing losses to the loss it differentiates
 and logs, as the JAX step does.
+
+``--emg_enc_cfg configs/emg_encoder/lfm2_8b_a1b.yaml`` trains the encoder
+with LFM2-8B-A1B's block stack (``EMGEncoderLFM2``, no JAX counterpart) on
+one device: f32 parameters and AdamW state, bf16 products
+(``models/lfm2.py`` ``COMPUTE_DTYPE``), and after each update the dropless sparse blocks'
+expert biases move by their loads; there is no auxiliary loss.
 """
 from __future__ import annotations
 
@@ -89,7 +95,7 @@ from ste_gan_torch.data.loader import Prefetcher, to_device
 from ste_gan_torch.device import resolve_device
 from ste_gan_torch.losses.encoder_loss import PAIRWISE_EPS
 from ste_gan_torch.models.emg_encoder import (
-    EMGEncoderTransformer, init_emg_encoder)
+    EMGEncoderLFM2, EMGEncoderTransformer, init_emg_encoder)
 from ste_gan_torch.ops import kernel_launches
 from ste_gan_torch.ops.dtw import dtw_alignment_batched
 from ste_gan_torch.ops.fused_adamw import (
@@ -300,9 +306,18 @@ def make_encoder_train_step(model: EMGEncoderTransformer, max_samples: int,
     ``allreduce_stage_grads_`` says. The step updates this rank's set:
     ``stage_parameters`` (``group`` is unused).
 
+    An ``EMGEncoderLFM2`` (one device only) moves its expert biases after
+    the AdamW update, from the loads of the step's forward.
+
     Spans (``utils/profiling.py``): ``enc/forward``, ``enc/loss`` (with
     ``dtw`` inside) and ``enc/backward`` around the unpipelined step's
-    phases, ``adamw`` inside the update."""
+    phases, ``adamw`` inside the update, ``enc/moe/bias`` after it."""
+    lfm2 = isinstance(model, EMGEncoderLFM2)
+    if lfm2 and (pipeline is not None or group is not None):
+        raise NotImplementedError(
+            "EMGEncoderLFM2 trains on one device: its routing, expert "
+            "biases and loads over data ranks or pipeline stages are not "
+            "written")
     if pipeline is not None:
         return _pipelined_train_step(model, max_samples, silent_pred_frames,
                                      *pipeline)
@@ -325,6 +340,9 @@ def make_encoder_train_step(model: EMGEncoderTransformer, max_samples: int,
             grads = mesh.allreduce_grads_(torch.autograd.grad(loss, params),
                                           group, average=False)
         fused_adamw_(state.opt, grads)
+        if lfm2:
+            with span("enc/moe/bias"):
+                model.update_expert_bias()
         state.step += 1
         return state, {"loss": loss.detach(), **counters}
 
@@ -577,6 +595,9 @@ def train_encoder_model(cfg: Config, trainset: EMGDataset, devset: EMGDataset,
     model = init_emg_encoder(
         cfg, torch.float32,
         torch.Generator().manual_seed(C.RANDOM_SEED)).to(dev)
+    if isinstance(model, EMGEncoderLFM2) and size > 1:
+        raise NotImplementedError(
+            "EMGEncoderLFM2 trains on one device (models/emg_encoder.py)")
     if stages > 1:
         if model.moe_experts > 0:
             raise NotImplementedError(

@@ -17,7 +17,9 @@ computes what the eager call computes (:meth:`GraphedCall.eager_reason`):
 * grad mode is on (a no-grad caller wants no backward);
 * no submodule carries a tensor-parallel ``tp`` (those layers run
   collectives inside the forward) or routes tokens by their values (an MoE
-  block reads its routing on the host, which a capture cannot);
+  block: the capacity block reads its routing on the host, which a
+  capture cannot; the dropless one sums its counters and keeps its loads
+  outside any graph);
 * no hook is registered but the module's own forward hooks (a hook inside
   the forward would not run in a replay);
 * the call's tensors and the module's parameters are on CUDA.
@@ -54,7 +56,7 @@ from typing import Any, Optional, Sequence, Tuple
 import torch
 from torch.nn.modules import module as nn_module
 
-from ste_gan_torch.models.moe import MoEFeedForward
+from ste_gan_torch.models.moe import DroplessMoE, MoEFeedForward
 from ste_gan_torch.utils.profiling import add
 
 REPLAYS = "gan/graph_replays"
@@ -91,7 +93,8 @@ class GraphedCall:
         self.module = module
         self.capturable = capturable
         self._subs = list(module.modules())
-        self._routed = any(isinstance(m, MoEFeedForward) for m in self._subs)
+        self._routed = any(isinstance(m, (MoEFeedForward, DroplessMoE))
+                           for m in self._subs)
         self._params = list(module.parameters())
         self._state = self._params + list(module.buffers())
         self._graphs: "collections.OrderedDict[tuple, Optional[_Graphs]]" = (

@@ -21,6 +21,30 @@ reads and a dict update under a lock: no torch call, no wait for the card.
 A span's host time is the time the host spends in the block: the launches
 it queues, not the card's work, except where the block itself waits
 (``synth/fetch``, ``feed/wait``).
+
+A span opened inside an autograd function's ``backward`` (``enc/lfm2/*``
+and ``enc/moe/experts``, which time their backward under the forward's
+name) runs on autograd's thread on the card, so the trace attributes the
+backward's kernels to it there.
+
+The encoders' LFM2 and mixture-of-experts spans and counters
+(``models/lfm2.py``; ``models/moe.py``, both blocks, the capacity block's
+in its forward only and counted over the whole batch):
+
+* ``enc/lfm2/short_conv``: the gated short convolution (``B * x``, the
+  causal depthwise conv, ``C *``), forward and backward, without its
+  projections;
+* ``enc/lfm2/attention``: the q/k RMSNorm, RoPE and causal GQA attention,
+  forward and backward, without the projections;
+* ``enc/moe/route``: router, scores, top-k and the picks' order or slots;
+  ``enc/moe/experts``: the expert products (``DroplessMoE``'s grouped
+  ones forward and backward); ``enc/moe/combine``: the gated sum of each
+  token's picks;
+* ``enc/moe/bias``: the expert biases' update after the optimizer step;
+* counters ``moe/picks`` (a host number) and ``moe/max_load`` (summed on
+  the card in int64, read by :func:`counters`), each added once per MoE
+  layer and forward; ``moe/dropped``, the picks over the capacity, in the
+  capacity block only (the dropless one computes every pick).
 """
 from __future__ import annotations
 
@@ -72,21 +96,26 @@ class span:
             self._range.__exit__(*exc)
 
 
-def add(name: str, value: float) -> None:
-    """Adds ``value`` to the counter ``name`` (and one to its calls)."""
+def add(name: str, value) -> None:
+    """Adds ``value`` to the counter ``name`` (and one to its calls). A
+    tensor ``value`` (a count the card computed) is summed on its device,
+    with no wait for it; :func:`counters` reads the sum."""
     with _LOCK:
         entry = _TABLE.get(name)
         if entry is None:
             _TABLE[name] = [value, 1]
         else:
-            entry[0] += value
+            entry[0] = entry[0] + value
             entry[1] += 1
 
 
 def counters() -> Dict[str, Tuple[float, int]]:
-    """A snapshot of the table: ``{name: (total, calls)}``."""
+    """A snapshot of the table: ``{name: (total, calls)}``. A counter
+    summed on the device is read here, one wait for the card per such
+    counter."""
     with _LOCK:
-        return {name: (entry[0], entry[1]) for name, entry in _TABLE.items()}
+        return {name: (float(entry[0]), entry[1])
+                for name, entry in _TABLE.items()}
 
 
 def since(before: Dict[str, Tuple[float, int]]
