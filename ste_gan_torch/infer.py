@@ -14,9 +14,12 @@ Counterpart of ``ste_gan_tpu/infer.py``:
   fixed-length streaming windows of true samples.
 
 Everything runs under ``torch.inference_mode()`` on ``cuda`` unless the
-caller passes ``device="cpu"``; without a card the constructors raise. The
-JAX package's bucketing keeps its compile cache small; here it keeps the
-semantics (pad, mask, trim) and the number of distinct shapes cuDNN sees.
+caller passes ``device="cpu"``; without a card the constructors raise. On
+one card the generator's forward replays from a CUDA graph per call shape
+(``infer_graphs.py``): each shape's first call runs eagerly, its second
+captures, later ones replay. The JAX package's bucketing keeps its compile
+cache small; here it keeps the semantics (pad, mask, trim) and the number
+of distinct shapes cuDNN and the graphs see.
 On the card "exact" means equal to f32 reduction noise: cuDNN may pick
 another algorithm for another length, and f32 convs run in TF32 unless
 ``torch.backends.cudnn.allow_tf32`` is off.
@@ -40,6 +43,7 @@ import torch.nn.functional as F
 
 from ste_gan_torch import constants as C
 from ste_gan_torch.device import resolve_device
+from ste_gan_torch.infer_graphs import EAGER, GraphedForward
 from ste_gan_torch.models.emg_encoder import init_emg_encoder
 from ste_gan_torch.models.generator import (EMGGeneratorGanTTS,
                                             init_emg_generator)
@@ -81,6 +85,7 @@ class EMGSynthesizer:
         self.generator = generator.to(self.device).eval().requires_grad_(False)
         self.replicas = [self.generator] + [
             copy.deepcopy(self.generator).to(d) for d in self.devices[1:]]
+        self._graphed = GraphedForward(self.generator)
         self.bucket = max(1, int(bucket))
         self.upsample = generator.upsample_factor
 
@@ -111,6 +116,12 @@ class EMGSynthesizer:
             return torch.zeros((rows,), dtype=torch.long, device=self.device)
         return torch.as_tensor(values, device=self.device).long()
 
+    def _lengths(self, rows: int, length: int) -> torch.Tensor:
+        """``[rows]`` of ``length`` on the device, filled there: no copy
+        from the host, which a graph capture cannot hold."""
+        return torch.full((rows,), length, dtype=torch.long,
+                          device=self.device)
+
     def _features(self, feats) -> torch.Tensor:
         if not isinstance(feats, torch.Tensor):
             feats = torch.from_numpy(np.asarray(feats, np.float32))
@@ -118,20 +129,19 @@ class EMGSynthesizer:
 
     @torch.inference_mode()
     def _forward(self, feats, session_idx, mode_idx, num_valid):
+        """The generator on a batch on ``self.device``; ``num_valid`` is
+        None or ``[B]`` on the device. One replica: through the graphs."""
         if len(self.replicas) == 1:
-            return self.generator(feats, session_idx, mode_idx,
-                                  num_valid_frames=num_valid)
+            return self._graphed(feats, session_idx, mode_idx, num_valid)
+        add(EAGER, 1)
         # Pad the rows to a multiple of the replicas with masked rows
         # (valid 0), give each replica its share, merge and trim.
         rows, n = feats.shape[0], len(self.replicas)
         pad = (-rows) % n
-        if pad or (num_valid is not None and not torch.is_tensor(num_valid)):
-            t = feats.shape[1] if num_valid is None else num_valid
-            valid = torch.zeros((rows + pad,), dtype=torch.long,
-                                device=self.device)
-            valid[:rows] = torch.as_tensor(t, device=self.device)
-            num_valid = valid
         if pad:
+            if num_valid is None:
+                num_valid = self._lengths(rows, feats.shape[1])
+            num_valid = F.pad(num_valid, (0, pad))
             feats = F.pad(feats, (0, 0, 0, 0, 0, pad))
             session_idx = F.pad(session_idx, (0, pad))
             mode_idx = F.pad(mode_idx, (0, pad))
@@ -157,7 +167,7 @@ class EMGSynthesizer:
         valid = None
         if padded_t != t:
             feats = F.pad(feats, (0, 0, 0, padded_t - t))
-            valid = t
+            valid = self._lengths(b, t)
         emg = self._forward(feats, self._index(session_idx, b),
                             self._index(mode_idx, b), valid)
         return emg[:, : self.upsample * t]
@@ -214,13 +224,17 @@ class EMGSynthesizer:
                          batch: int = 1) -> float:
         """Synthesis wall time over the duration of the EMG it makes (lower
         is better). Features are 50 Hz for the x16 generator and 100 Hz for
-        the x8 one. One untimed call first; on a card the timed loop ends
-        in ``torch.cuda.synchronize()``."""
+        the x8 one. Two untimed calls first: on one card the first runs
+        eagerly and the second captures the shape's CUDA graph, so the
+        timed calls replay it (factors from before the graphs timed eager
+        launches); on a card the timed loop ends in
+        ``torch.cuda.synchronize()``."""
         feats_rate = 50.0 if self.upsample == 16 else 100.0
         dim = self.generator.speech_input_dim
         feats = torch.zeros((batch, num_frames, dim), device=self.device)
         sess = torch.zeros((batch,), dtype=torch.long, device=self.device)
-        self.synthesize_batch(feats, sess)
+        for _ in range(2):
+            self.synthesize_batch(feats, sess)
         _synchronize(self.device)
         start = time.perf_counter()
         for _ in range(iters):

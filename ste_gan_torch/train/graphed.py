@@ -22,12 +22,13 @@ computes what the eager call computes (:meth:`GraphedCall.eager_reason`):
   outside any graph);
 * no hook is registered but the module's own forward hooks (a hook inside
   the forward would not run in a replay);
-* the call's tensors and the module's parameters are on CUDA.
+* the call's tensors and the module's parameters are on one CUDA device.
 
 Otherwise it calls the module as before. Graphs are keyed by the call's
 signature: shape, stride, dtype, device and ``requires_grad`` of each
-tensor, the other arguments, and the addresses and ``requires_grad`` of
-the module's parameters and buffers. The first call of a signature runs
+tensor, the other arguments, the addresses of the module's parameters and
+buffers, ``requires_grad`` of its parameters, and the switches a capture
+bakes in (``utils/graph_keys.py``). The first call of a signature runs
 eagerly, which warms cuDNN and lazy initialisation and lets forward hooks
 see a real call; the second runs the forward and backward once more on a
 side stream, captures both into a memory pool of their own, and replays;
@@ -54,9 +55,11 @@ import contextlib
 from typing import Any, Optional, Sequence, Tuple
 
 import torch
-from torch.nn.modules import module as nn_module
 
 from ste_gan_torch.models.moe import DroplessMoE, MoEFeedForward
+from ste_gan_torch.utils.graph_keys import global_hooks as _global_hooks
+from ste_gan_torch.utils.graph_keys import on_cuda as _on_cuda
+from ste_gan_torch.utils.graph_keys import signature
 from ste_gan_torch.utils.profiling import add
 
 REPLAYS = "gan/graph_replays"
@@ -65,16 +68,6 @@ CAPTURES = "gan/graph_captures"
 
 #: Signatures a :class:`GraphedCall` keeps, seen once or captured.
 MAX_SIGNATURES = 4
-
-
-def _on_cuda(tensors: Sequence[torch.Tensor]) -> bool:
-    return all(t.is_cuda for t in tensors)
-
-
-def _global_hooks() -> bool:
-    return any(getattr(nn_module, name, None) for name in (
-        "_global_forward_pre_hooks", "_global_forward_hooks",
-        "_global_backward_pre_hooks", "_global_backward_hooks"))
 
 
 def _hooks_inside(m: torch.nn.Module, top: bool) -> bool:
@@ -122,11 +115,8 @@ class GraphedCall:
 
     def signature(self, args: Sequence[Any]) -> tuple:
         """The key of the call's graphs."""
-        return tuple((tuple(a.shape), a.stride(), a.dtype, a.device,
-                      a.requires_grad) if isinstance(a, torch.Tensor)
-                     else ("value", a) for a in args) + (
-            tuple(t.data_ptr() for t in self._state),
-            tuple(p.requires_grad for p in self._params))
+        return signature(args, self._state) + (
+            tuple(p.requires_grad for p in self._params),)
 
     def __call__(self, *args):
         key = None if self.eager_reason(args) else self.signature(args)
