@@ -1,6 +1,6 @@
 """Time the grouped-conv kernels of two checkouts on one card, in turns.
 
-    python -m ste_gan_torch.compare_conv OLD_DIR NEW_DIR
+    python3 compare_conv.py OLD_DIR NEW_DIR
         [--out chiprun_out/compare_conv.json]
 
 Each turn runs ``chip_smoke.check_grouped_conv`` (the ``[conv]`` phase of
@@ -11,7 +11,9 @@ so that each turn times the kernels built from its own sources. Turns A, B,
 B, A put both versions on the same card under the same conditions. Prints
 the card, then one line per turn and kernel (bf16, summed over the six
 geometries), and writes every row of every turn to ``--out``. Needs a CUDA
-card; each checkout needs its own ``chip_smoke.py``.
+card; each checkout needs its own ``chip_smoke.py``. It sits beside
+``chip_smoke.py`` at the root of the checkout, outside the package, since
+it drives that script.
 """
 from __future__ import annotations
 

@@ -12,25 +12,17 @@ call computes (:meth:`GraphedForward.eager_reason`):
 
 * the call runs under ``torch.inference_mode()`` (a graph records no
   autograd history, and its buffers are inference tensors);
-* no submodule carries a tensor-parallel ``tp`` (those layers run
-  collectives inside the forward);
+* no submodule carries a tensor-parallel shard;
 * no hook is registered, globally or on any submodule (a replay runs
   none);
 * every argument is a tensor or None, and the tensors and the module's
   parameters are on one CUDA device.
 
 Otherwise it calls the module as before. Graphs are keyed by the call's
-signature (``utils/graph_keys.py``, shared with the GAN step's graphs):
-shape, stride, dtype and device of each tensor argument, the addresses of
-the module's parameters and buffers, and the switches a capture bakes in
-(TF32 in cuDNN and in matrix products, cuDNN's deterministic mode,
-autocast). The first call of a signature runs eagerly, which warms cuDNN's
-choice of algorithm and lazy initialisation; the second captures the
-forward on a side stream, and replays; later calls replay. A capture first
-runs the forward outside the capture only where its thread has not
-captured before or did not run the signature's eager call.
-At most :data:`MAX_SIGNATURES` signatures are kept, the least recently
-used dropped first.
+signature and admitted as ``utils/graph_keys.py`` says, at most
+:data:`MAX_SIGNATURES`; a signature's second call captures the forward on
+a side stream, first running it outside the capture only where its thread
+has not captured before or did not run the signature's eager call.
 
 All graphs of one :class:`GraphedForward` share one memory pool, so a
 graph's replay may overwrite another graph's output buffer; and calls of
@@ -53,16 +45,14 @@ run eagerly), ``synth/graph_captures``.
 """
 from __future__ import annotations
 
-import collections
 import threading
-from typing import Any, Optional, Sequence, Union
+from typing import Any, Optional, Sequence
 
 import torch
 
-from ste_gan_torch.utils.graph_keys import global_hooks
+from ste_gan_torch.utils.graph_keys import (Admission, hooked, signature,
+                                            tensor_parallel)
 from ste_gan_torch.utils.graph_keys import on_cuda as _on_cuda
-from ste_gan_torch.utils.graph_keys import signature
-from ste_gan_torch.utils.profiling import add
 
 REPLAYS = "synth/graph_replays"
 EAGER = "synth/graph_eager"
@@ -74,13 +64,6 @@ CAPTURES = "synth/graph_captures"
 MAX_SIGNATURES = 64
 
 
-def _hooked(modules: Sequence[torch.nn.Module]) -> bool:
-    """A hook, global or on any of ``modules``, that a replay would skip."""
-    return global_hooks() or any(
-        m._forward_pre_hooks or m._forward_hooks or m._backward_hooks
-        or getattr(m, "_backward_pre_hooks", None) for m in modules)
-
-
 class GraphedForward:
     """``module(*args)``, served from CUDA graphs where the call allows
     it (see the module docstring). Safe to call from several threads."""
@@ -89,9 +72,7 @@ class GraphedForward:
         self.module = module
         self._subs = list(module.modules())
         self._state = [*module.parameters(), *module.buffers()]
-        # A signature's graph, or the thread that ran its first call.
-        self._graphs: "collections.OrderedDict[tuple, Union[_Graph, int]]" = (
-            collections.OrderedDict())
+        self._admission = Admission(MAX_SIGNATURES, EAGER, CAPTURES, REPLAYS)
         self._lock = threading.Lock()
         self._warmed = threading.local()
         self._pool = None
@@ -104,9 +85,9 @@ class GraphedForward:
         """Why this call runs eagerly, or None if graphs may serve it."""
         if not torch.is_inference_mode_enabled():
             return "not in inference mode"
-        if any(vars(m).get("tp") is not None for m in self._subs):
+        if tensor_parallel(self._subs):
             return "a tensor-parallel layer"
-        if _hooked(self._subs):
+        if hooked(self._subs):
             return "a module hook"
         if not all(a is None or isinstance(a, torch.Tensor) for a in args):
             return "an argument neither a tensor nor None"
@@ -121,28 +102,19 @@ class GraphedForward:
 
     def __call__(self, *args):
         if self.eager_reason(args) is not None:
-            add(EAGER, 1)
-            return self.module(*args)
+            return self._admission.eager(self.module, args)
         key = self.signature(args)
         # One call at a time, from the bookkeeping to the enqueue of the
         # output's copy: calls share the graphs' input buffers, and graphs
         # share one memory pool, so one graph's replay may overwrite
         # another's output buffer.
         with self._lock:
-            if key not in self._graphs:
-                self._graphs[key] = threading.get_ident()
-                while len(self._graphs) > MAX_SIGNATURES:
-                    self._graphs.popitem(last=False)
-                add(EAGER, 1)
-                return self.module(*args)
-            self._graphs.move_to_end(key)
-            graph = self._graphs[key]
-            if isinstance(graph, int):
-                graph = self._graphs[key] = self._capture(
-                    args, self._warm_first(graph))
-                add(CAPTURES, 1)
+            graph = self._admission.graph(
+                key, threading.get_ident(),
+                lambda thread: self._capture(args, self._warm_first(thread)))
+            if graph is None:
+                return self._admission.eager(self.module, args)
             self._after_last(graph)
-            add(REPLAYS, 1)
             return graph.run(args)
 
     def _after_last(self, graph: "_Graph") -> None:

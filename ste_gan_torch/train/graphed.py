@@ -15,25 +15,19 @@ computes what the eager call computes (:meth:`GraphedCall.eager_reason`):
 * the step lets it (``capturable``: under ``train.remat``
   ``torch.utils.checkpoint`` recomputes the forward inside the backward);
 * grad mode is on (a no-grad caller wants no backward);
-* no submodule carries a tensor-parallel ``tp`` (those layers run
-  collectives inside the forward) or routes tokens by their values (an MoE
-  block: the capacity block reads its routing on the host, which a
-  capture cannot; the dropless one sums its counters and keeps its loads
-  outside any graph);
+* no submodule carries a tensor-parallel shard or routes tokens by their
+  values (an MoE block: the capacity block reads its routing on the host,
+  which a capture cannot; the dropless one sums its counters and keeps
+  its loads outside any graph);
 * no hook is registered but the module's own forward hooks (a hook inside
   the forward would not run in a replay);
 * the call's tensors and the module's parameters are on one CUDA device.
 
 Otherwise it calls the module as before. Graphs are keyed by the call's
-signature: shape, stride, dtype, device and ``requires_grad`` of each
-tensor, the other arguments, the addresses of the module's parameters and
-buffers, ``requires_grad`` of its parameters, and the switches a capture
-bakes in (``utils/graph_keys.py``). The first call of a signature runs
-eagerly, which warms cuDNN and lazy initialisation and lets forward hooks
-see a real call; the second runs the forward and backward once more on a
-side stream, captures both into a memory pool of their own, and replays;
-later calls replay. At most :data:`MAX_SIGNATURES` signatures are kept,
-the least recently used dropped first.
+signature and ``requires_grad`` of the module's parameters, and admitted
+as ``utils/graph_keys.py`` says, at most :data:`MAX_SIGNATURES`; a
+signature's second call runs the forward and backward once more on a side
+stream and captures both into a memory pool of their own.
 
 A replay reads the parameters and buffers where they were at capture:
 AdamW, the EMA swap, checkpoint restores and ``eval_generator_params``
@@ -50,17 +44,15 @@ a replay), ``gan/graph_eager`` (calls run eagerly), ``gan/graph_captures``.
 """
 from __future__ import annotations
 
-import collections
 import contextlib
 from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
 from ste_gan_torch.models.moe import DroplessMoE, MoEFeedForward
-from ste_gan_torch.utils.graph_keys import global_hooks as _global_hooks
+from ste_gan_torch.utils.graph_keys import (Admission, global_hooks, hooked,
+                                            signature, tensor_parallel)
 from ste_gan_torch.utils.graph_keys import on_cuda as _on_cuda
-from ste_gan_torch.utils.graph_keys import signature
-from ste_gan_torch.utils.profiling import add
 
 REPLAYS = "gan/graph_replays"
 EAGER = "gan/graph_eager"
@@ -68,14 +60,6 @@ CAPTURES = "gan/graph_captures"
 
 #: Signatures a :class:`GraphedCall` keeps, seen once or captured.
 MAX_SIGNATURES = 4
-
-
-def _hooks_inside(m: torch.nn.Module, top: bool) -> bool:
-    """A hook a replay would skip: any but the top module's forward
-    hooks."""
-    return bool(m._forward_pre_hooks or m._backward_hooks
-                or getattr(m, "_backward_pre_hooks", None)
-                or (not top and m._forward_hooks))
 
 
 class GraphedCall:
@@ -90,8 +74,7 @@ class GraphedCall:
                            for m in self._subs)
         self._params = list(module.parameters())
         self._state = self._params + list(module.buffers())
-        self._graphs: "collections.OrderedDict[tuple, Optional[_Graphs]]" = (
-            collections.OrderedDict())
+        self._admission = Admission(MAX_SIGNATURES, EAGER, CAPTURES, REPLAYS)
 
     def eager_reason(self, args: Sequence[Any]) -> Optional[str]:
         """Why this call runs eagerly, or None if graphs may serve it."""
@@ -101,13 +84,12 @@ class GraphedCall:
             return "grad mode is off"
         if self._routed:
             return "routing by value (MoE)"
-        if _global_hooks():
+        if global_hooks():
             return "a global module hook"
-        for m in self._subs:
-            if getattr(m, "tp", None) is not None:
-                return "a tensor-parallel layer"
-            if _hooks_inside(m, m is self.module):
-                return "a hook inside the forward"
+        if tensor_parallel(self._subs):
+            return "a tensor-parallel layer"
+        if hooked(self._subs, self.module):
+            return "a hook inside the forward"
         tensors = [a for a in args if isinstance(a, torch.Tensor)]
         if not tensors or not _on_cuda(tensors + self._state[:1]):
             return "not on CUDA"
@@ -119,22 +101,11 @@ class GraphedCall:
             tuple(p.requires_grad for p in self._params),)
 
     def __call__(self, *args):
-        key = None if self.eager_reason(args) else self.signature(args)
-        if key is None or key not in self._graphs:
-            if key is not None:
-                self._graphs[key] = None
-                while len(self._graphs) > MAX_SIGNATURES:
-                    self._graphs.popitem(last=False)
-            add(EAGER, 1)
-            return self.module(*args)
-        self._graphs.move_to_end(key)
-        graphs = self._graphs[key]
+        graphs = None if self.eager_reason(args) else self._admission.graph(
+            self.signature(args), None, lambda _: _Graphs(self.module, args))
         if graphs is None:
-            graphs = self._graphs[key] = _Graphs(self.module, args)
-            add(CAPTURES, 1)
-        out = graphs.run(args)
-        add(REPLAYS, 1)
-        return self._hooked(args, out)
+            return self._admission.eager(self.module, args)
+        return self._hooked(args, graphs.run(args))
 
     def _hooked(self, args, out):
         """``out`` through the module's forward hooks, as ``module(*args)``

@@ -4,10 +4,10 @@
 On the CPU (tier-1): the engagement rule, reason by reason; the step on
 the CPU, under ``train.remat`` and with a tensor-parallel layer runs every
 call eagerly and counts it, with no capture; and, with the device check
-and the capture stood in by an eager call, the bookkeeping: the first
-call of a signature eager, the second captured and served, later ones
-served, a new signature (a moved parameter among them) eager again, at
-most ``MAX_SIGNATURES`` kept, forward hooks on every call.
+and the capture stood in by an eager call, the bookkeeping of the step:
+per network the first call eager, the second captured and served, later
+ones served, forward hooks on every call. The signatures and their bound
+are ``tests/test_torch_graph_keys.py``'s.
 
 On the card (marked ``card``; they skip without one): six graphed steps
 against six eager ones from the same weights and batches, K = 1 and K = 2,
@@ -216,46 +216,6 @@ def test_step_bookkeeping_with_stand_in_capture(accum, monkeypatch):
     for w, g in zip(want, got):
         for k in w:
             torch.testing.assert_close(g[k], w[k], rtol=0, atol=0)
-
-
-def test_signatures_are_keyed_and_bounded(monkeypatch):
-    """Shapes, a moved parameter and ``requires_grad`` make new
-    signatures, each eager at its first call; the least recently used
-    goes past ``MAX_SIGNATURES``."""
-    monkeypatch.setattr(graphed, "_on_cuda", lambda t: True)
-    captured = []
-
-    class Recording(_EagerGraphs):
-        def __init__(self, module, args):
-            super().__init__(module, args)
-            captured.append(tuple(args[0].shape))
-
-    monkeypatch.setattr(graphed, "_Graphs", Recording)
-    net = _Net()
-    call = graphed.GraphedCall(net)
-
-    def served(length: int) -> bool:
-        before = profiling.counters()
-        out = call(torch.ones(2, 4, length))
-        assert out.shape == (2, length, 4)
-        return _counts(before)[graphed.REPLAYS] == 1
-
-    assert [served(5) for _ in range(3)] == [False, True, True]
-    assert [served(7), served(7), served(5)] == [False, True, True]
-    with torch.no_grad():
-        net.lin.weight.data = net.lin.weight.data.clone()
-    assert [served(5), served(5)] == [False, True]
-    net.lin.bias.requires_grad_(False)
-    assert [served(5), served(5)] == [False, True]
-    net.lin.bias.requires_grad_(True)
-    # Four signatures kept: the least recently used go first, the first
-    # 7 among them.
-    for length in (8, 9):
-        assert [served(length), served(length)] == [False, True]
-    assert len(call._graphs) == graphed.MAX_SIGNATURES
-    assert [served(7), served(7)] == [False, True]
-    assert captured == [(2, 4, 5), (2, 4, 7), (2, 4, 5), (2, 4, 5),
-                        (2, 4, 8), (2, 4, 9), (2, 4, 7)]
 
 
 @pytest.mark.parametrize("counters, want", [

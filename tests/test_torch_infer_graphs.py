@@ -8,9 +8,10 @@ with a number among its arguments); the signature (rows, padded length,
 valid lengths given or not, a moved parameter and TF32 make new keys, an
 in-place ``set_params`` does not); and, with the device check passed and
 the capture stood in by an eager call, the bookkeeping through
-``convert_dataset``, the least-recently-used bound, and threads that call
-one synthesizer at once through stand-in graphs that share their buffers
-as the real ones do; the benchmark's ``graph_replay_pct.synth`` reader.
+``convert_dataset`` (the least-recently-used bound is
+``tests/test_torch_graph_keys.py``'s), and threads that call one
+synthesizer at once through stand-in graphs that share their buffers as
+the real ones do; the benchmark's ``graph_replay_pct.synth`` reader.
 
 On the card (marked ``card``; they skip without one): graphed against
 eager at full width over four shapes, a short tail batch among them, bit
@@ -161,7 +162,7 @@ def test_stays_eager_and_counts(case, monkeypatch):
     assert _counts(before) == {infer_graphs.EAGER: 3,
                                infer_graphs.CAPTURES: 0,
                                infer_graphs.REPLAYS: 0}
-    assert synth._graphed._graphs == {}
+    assert synth._graphed._admission.entries == {}
     with torch.no_grad():
         want = want_gen.eval()(torch.from_numpy(feats),
                                torch.from_numpy(sess),
@@ -248,31 +249,6 @@ def test_convert_dataset_bookkeeping(monkeypatch):
         for g, w in zip(got, want):
             assert g["UTT_ID"] == w["UTT_ID"]
             np.testing.assert_array_equal(g["FAKE_EMG"], w["FAKE_EMG"])
-
-
-def test_least_recently_used_bound(monkeypatch):
-    """``MAX_SIGNATURES`` keys kept; one more drops the least recently
-    used, which then runs eagerly again, while a kept one is captured."""
-    captured = []
-    _stand_in(monkeypatch, captured)
-    call = infer_graphs.GraphedForward(torch.nn.Linear(4, 4))
-    bound = infer_graphs.MAX_SIGNATURES
-
-    def served(rows: int) -> bool:
-        before = profiling.counters()
-        with torch.inference_mode():
-            assert call(torch.ones(rows, 4)).shape == (rows, 4)
-        return _counts(before)[infer_graphs.REPLAYS] == 1
-
-    assert not any(served(rows) for rows in range(1, bound + 1))
-    assert len(call._graphs) == bound
-    # Seen once, so captured now; 1 is then the most recently used and
-    # bound + 1 drops 2.
-    assert served(1)
-    assert not served(bound + 1)
-    assert len(call._graphs) == bound
-    assert [served(3), served(2), served(2)] == [True, False, True]
-    assert captured == [(1, 4), (3, 4), (2, 4)]
 
 
 def test_warm_first():

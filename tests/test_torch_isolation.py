@@ -25,7 +25,7 @@ ROOT = Path(__file__).resolve().parents[1]
 def test_port_and_chip_smoke_import_no_jax():
     code = (
         "import sys, importlib, pkgutil\n"
-        "import ste_gan_torch, chip_smoke\n"
+        "import ste_gan_torch, chip_smoke, compare_conv\n"
         "for m in pkgutil.walk_packages(ste_gan_torch.__path__, "
         "'ste_gan_torch.'):\n"
         "    importlib.import_module(m.name)\n"
