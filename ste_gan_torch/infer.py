@@ -9,7 +9,7 @@ Counterpart of ``ste_gan_tpu/infer.py``:
   equal to the conv stack's boundary zero padding;
 * :func:`convert_dataset`: a dataset split converted in length-sorted,
   bucketed, stacked batches with per-row session, speaking mode and valid
-  length;
+  length, one batch in flight ahead of the host (pinned copies on a card);
 * :class:`EMGDecoder`: the encoder as a decoder, full-length and in
   fixed-length streaming windows of true samples.
 
@@ -35,7 +35,8 @@ from __future__ import annotations
 import copy
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import (Dict, Iterable, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -111,9 +112,15 @@ class EMGSynthesizer:
             replica.load_state_dict(state_dict, strict=True)
 
     # ------------------------------------------------------------------
+    # A tensor in page-locked host memory (``convert_dataset``'s staging)
+    # is copied without a wait; anything else, numpy above all (the
+    # service's batches), as before, with the copy's wait for the card.
     def _index(self, values, rows: int) -> torch.Tensor:
         if values is None:
             return torch.zeros((rows,), dtype=torch.long, device=self.device)
+        if isinstance(values, torch.Tensor):
+            return values.to(self.device, torch.long,
+                             non_blocking=values.is_pinned())
         return torch.as_tensor(values, device=self.device).long()
 
     def _lengths(self, rows: int, length: int) -> torch.Tensor:
@@ -123,9 +130,11 @@ class EMGSynthesizer:
                           device=self.device)
 
     def _features(self, feats) -> torch.Tensor:
-        if not isinstance(feats, torch.Tensor):
-            feats = torch.from_numpy(np.asarray(feats, np.float32))
-        return feats.to(self.device, torch.float32)
+        if isinstance(feats, torch.Tensor):
+            return feats.to(self.device, torch.float32,
+                            non_blocking=feats.is_pinned())
+        return torch.from_numpy(np.asarray(feats, np.float32)).to(
+            self.device)
 
     @torch.inference_mode()
     def _forward(self, feats, session_idx, mode_idx, num_valid):
@@ -178,7 +187,9 @@ class EMGSynthesizer:
         ``[B]`` -> ``[B, upsample*Tpad, C]``; row ``b`` is exact up to
         ``upsample*valid[b]`` (its padded frames are masked). The copies
         to the device run in the ``synth/h2d`` span, the generator's
-        launches in ``synth/forward``."""
+        launches in ``synth/forward``. A copy from a tensor in page-locked
+        host memory does not wait; from numpy it waits for the card, so
+        the caller may reuse its arrays at once."""
         with span("synth/h2d"):
             feats = self._features(feats)
             b = feats.shape[0]
@@ -244,6 +255,26 @@ class EMGSynthesizer:
         return elapsed / (num_frames / feats_rate * batch)
 
 
+#: Counters of :func:`convert_dataset`'s pipeline, one per batch after the
+#: first of a pass on a card: the batch before was still unfinished when
+#: this one was queued (the card had work queued while the host packed), or
+#: it had finished (the card may have waited for the host).
+AHEAD = "synth/ahead"
+BEHIND = "synth/behind"
+
+
+class _Queued(NamedTuple):
+    """A batch of :func:`convert_dataset` queued and not yet fetched."""
+
+    chunk: List[int]
+    lengths: List[int]
+    padded: int
+    #: The batch's EMG in host memory once ``done``.
+    out: torch.Tensor
+    #: On a card, recorded after the copy back; None on the CPU.
+    done: Optional[torch.cuda.Event]
+
+
 def convert_dataset(synth: EMGSynthesizer, dataset,
                     feature_key: str = C.DataType.SPEECH_UNITS,
                     bucket: int = 64, max_batch: int = 16) -> List[Dict]:
@@ -253,14 +284,26 @@ def convert_dataset(synth: EMGSynthesizer, dataset,
     length; each group runs in stacked batches of at most ``max_batch``
     rows with per-row session, speaking mode and valid length (the padded
     frames are masked). Returns, in dataset order, ``{utt_id, fake_emg
-    [upsample*T, C] numpy, session_id}``.
+    [upsample*T, C] numpy, session_id}``; each ``fake_emg`` owns its
+    memory.
 
-    Per batch, the spans ``synth/pack`` (the numpy batch), ``synth/h2d``,
-    ``synth/forward``, ``synth/fetch`` (the copy back, which waits for the
+    One batch is in flight ahead of the host: batch n+1 is packed and
+    queued before batch n is fetched, so on a card the host's work
+    overlaps the card's. There a batch is packed straight into page-locked
+    host tensors (PyTorch's caching host allocator, which reuses a block
+    only after the copies recorded on it have completed), copied to the
+    card and back without a wait, and fetched through an event; each
+    result is copied out of the pinned block. On the CPU the same loop
+    runs in pageable memory, one step after the other.
+
+    Per batch, the spans ``synth/pack``, ``synth/h2d``, ``synth/forward``,
+    ``synth/fetch`` (the wait for the batch's copy back, the wait for the
     device) and ``synth/unpack``, and the counters ``synth/batches``,
     ``synth/valid_frames`` and ``synth/computed_frames`` (rows times the
-    padded length) of ``utils/profiling.py``."""
+    padded length) of ``utils/profiling.py``; on a card :data:`AHEAD` or
+    :data:`BEHIND` for each batch after the first."""
     up = synth.upsample
+    pinned = synth.device.type == "cuda"
     items = [dataset[i] for i in range(len(dataset))]
     order = sorted(range(len(items)),
                    key=lambda i: len(items[i][feature_key]))
@@ -271,35 +314,63 @@ def convert_dataset(synth: EMGSynthesizer, dataset,
         padded = round_up(max(1, len(items[i][feature_key])), bucket)
         groups.setdefault(padded, []).append(i)
 
+    def launch(chunk: List[int], padded: int,
+               previous: Optional[_Queued]) -> _Queued:
+        with span("synth/pack"):
+            rows = len(chunk)
+            dim = items[chunk[0]][feature_key].shape[-1]
+            feats = torch.empty((rows, padded, dim), dtype=torch.float32,
+                                pin_memory=pinned)
+            # Rows: session, speaking mode, valid length.
+            index = torch.empty((3, rows), dtype=torch.long,
+                                pin_memory=pinned)
+            host, codes = feats.numpy(), index.numpy()
+            lengths = [len(items[i][feature_key]) for i in chunk]
+            for row, i in enumerate(chunk):
+                host[row, : lengths[row]] = items[i][feature_key]
+                host[row, lengths[row]:] = 0
+                codes[:, row] = (
+                    int(items[i][C.DataType.SESSION_INDEX]),
+                    int(items[i][C.DataType.SPEAKING_MODE_INDEX]),
+                    lengths[row])
+        if previous is not None and previous.done is not None:
+            add(BEHIND if previous.done.query() else AHEAD, 1)
+        emg = synth.synthesize_padded(feats, *index)
+        out = torch.empty(emg.shape, dtype=torch.float32, pin_memory=pinned)
+        out.copy_(emg.float(), non_blocking=pinned)
+        done = None
+        if pinned:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(emg.device))
+        return _Queued(chunk, lengths, padded, out, done)
+
+    def finish(batch: _Queued) -> None:
+        with span("synth/fetch"):
+            if batch.done is not None:
+                batch.done.synchronize()
+            emg = batch.out.numpy()
+        with span("synth/unpack"):
+            for row, i in enumerate(batch.chunk):
+                results[i] = {
+                    C.DataType.UTT_ID: items[i][C.DataType.UTT_ID],
+                    C.DataType.FAKE_EMG:
+                        emg[row, : up * batch.lengths[row]].copy(),
+                    C.DataType.SESSION_ID: items[i][C.DataType.SESSION_ID],
+                }
+        add("synth/batches", 1)
+        add("synth/valid_frames", sum(batch.lengths))
+        add("synth/computed_frames", len(batch.chunk) * batch.padded)
+
+    pending = None
     for padded, indices in groups.items():
         for start in range(0, len(indices), max_batch):
-            chunk = indices[start:start + max_batch]
-            with span("synth/pack"):
-                feats = np.zeros((len(chunk), padded,
-                                  items[chunk[0]][feature_key].shape[-1]),
-                                 np.float32)
-                valid = np.zeros((len(chunk),), np.int64)
-                sess = np.zeros((len(chunk),), np.int64)
-                mode = np.zeros((len(chunk),), np.int64)
-                for row, i in enumerate(chunk):
-                    f = items[i][feature_key]
-                    feats[row, : len(f)] = f
-                    valid[row] = len(f)
-                    sess[row] = int(items[i][C.DataType.SESSION_INDEX])
-                    mode[row] = int(items[i][C.DataType.SPEAKING_MODE_INDEX])
-            emg = synth.synthesize_padded(feats, sess, mode, valid)
-            with span("synth/fetch"):
-                emg = emg.float().cpu().numpy()
-            with span("synth/unpack"):
-                for row, i in enumerate(chunk):
-                    results[i] = {
-                        C.DataType.UTT_ID: items[i][C.DataType.UTT_ID],
-                        C.DataType.FAKE_EMG: emg[row, : up * valid[row]],
-                        C.DataType.SESSION_ID: items[i][C.DataType.SESSION_ID],
-                    }
-            add("synth/batches", 1)
-            add("synth/valid_frames", int(valid.sum()))
-            add("synth/computed_frames", len(chunk) * padded)
+            queued = launch(indices[start:start + max_batch], padded,
+                            pending)
+            if pending is not None:
+                finish(pending)
+            pending = queued
+    if pending is not None:
+        finish(pending)
     return results
 
 

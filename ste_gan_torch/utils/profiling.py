@@ -27,6 +27,16 @@ and ``enc/moe/experts``, which time their backward under the forward's
 name) runs on autograd's thread on the card, so the trace attributes the
 backward's kernels to it there.
 
+The synthesis loop's (``infer.py`` ``convert_dataset``), per batch: spans
+``synth/pack``, ``synth/h2d``, ``synth/forward``, ``synth/fetch`` (the
+wait for the card) and ``synth/unpack``; counters ``synth/batches``,
+``synth/valid_frames``, ``synth/computed_frames``; on a card, for each
+batch after the first of a pass, ``synth/ahead`` (queued while the batch
+before was still unfinished on the card) or ``synth/behind`` (queued
+after it had finished). The generator's CUDA graphs add
+``synth/graph_replays``, ``synth/graph_eager`` and
+``synth/graph_captures`` (``infer_graphs.py``).
+
 The encoders' LFM2 and mixture-of-experts spans and counters
 (``models/lfm2.py``; ``models/moe.py``, both blocks, the capacity block's
 in its forward only and counted over the whole batch):

@@ -11,11 +11,16 @@ the capture stood in by an eager call, the bookkeeping through
 ``convert_dataset`` (the least-recently-used bound is
 ``tests/test_torch_graph_keys.py``'s), and threads that call one
 synthesizer at once through stand-in graphs that share their buffers as
-the real ones do; the benchmark's ``graph_replay_pct.synth`` reader.
+the real ones do; ``convert_dataset``'s pipelined loop against a serial
+loop of ``synthesize_padded`` calls from numpy and from tensors, bit for
+bit, each result owning its memory; the benchmark's
+``graph_replay_pct.synth`` and ``ahead_pct.synth`` readers.
 
 On the card (marked ``card``; they skip without one): graphed against
 eager at full width over four shapes, a short tail batch among them, bit
-for bit; ``convert_dataset`` over a log-normal split with its counters; a
+for bit; ``convert_dataset`` over a log-normal split, cold and warm,
+against the serial loop bit for bit, with its counters (the pipeline's
+among them); a
 replay after ``set_params``; a returned tensor left alone by the next
 call; the HTTP service's streams and micro-batches from several threads at
 once against the eager answers. Eager references come from a synthesizer whose generator holds a
@@ -34,7 +39,7 @@ import numpy as np
 import pytest
 import torch
 
-from ste_gan_torch import infer_graphs
+from ste_gan_torch import infer, infer_graphs
 from ste_gan_torch.infer import EMGSynthesizer, convert_dataset
 from ste_gan_torch.models.generator import EMGGeneratorGanTTS
 from ste_gan_torch.utils import profiling
@@ -91,6 +96,45 @@ def _shapes_and_batches(split, bucket: int, rows: int):
     return (sum(len({min(rows, n - s) for s in range(0, n, rows)})
                 for n in per_bucket.values()),
             sum(-(-n // rows) for n in per_bucket.values()))
+
+
+def _serial(synth, split, bucket: int, rows: int, tensors: bool = False):
+    """What ``convert_dataset`` returns, by a plain serial loop: its
+    batches, each ``synthesize_padded(...).cpu()`` before the next is
+    packed, from numpy (the service's path) or CPU tensors. The EMG of
+    each utterance, in dataset order."""
+    order = sorted(range(len(split)),
+                   key=lambda i: len(split[i]["SPEECH_UNITS"]))
+    groups = {}
+    for i in order:
+        padded = -(-len(split[i]["SPEECH_UNITS"]) // bucket) * bucket
+        groups.setdefault(padded, []).append(i)
+    out = [None] * len(split)
+    for padded, indices in groups.items():
+        for start in range(0, len(indices), rows):
+            chunk = indices[start:start + rows]
+            valid = np.array([len(split[i]["SPEECH_UNITS"]) for i in chunk])
+            feats = np.zeros((len(chunk), padded, DIM), np.float32)
+            for row, i in enumerate(chunk):
+                feats[row, : valid[row]] = split[i]["SPEECH_UNITS"]
+            args = (feats, np.array([split[i]["SESSION_INDEX"] for i in chunk]),
+                    np.array([split[i]["SPEAKING_MODE_IDX"] for i in chunk]),
+                    valid)
+            if tensors:
+                args = tuple(torch.from_numpy(a) for a in args)
+            emg = synth.synthesize_padded(*args).cpu().numpy()
+            for row, i in enumerate(chunk):
+                out[i] = emg[row, : 16 * valid[row]]
+    return out
+
+
+def _assert_own_memory(results) -> None:
+    """Each result owns its memory, and no two share any."""
+    emgs = [r["FAKE_EMG"] for r in results]
+    assert all(e.flags.owndata for e in emgs)
+    for a in range(len(emgs)):
+        for b in range(a + 1, len(emgs)):
+            assert not np.shares_memory(emgs[a], emgs[b]), (a, b)
 
 
 class _EagerGraph:
@@ -251,6 +295,25 @@ def test_convert_dataset_bookkeeping(monkeypatch):
             np.testing.assert_array_equal(g["FAKE_EMG"], w["FAKE_EMG"])
 
 
+@pytest.mark.parametrize("inputs", ["numpy", "tensor"])
+def test_convert_dataset_equals_a_serial_loop(inputs):
+    """Over a log-normal split, ``convert_dataset`` (one batch in flight)
+    returns in dataset order, bit for bit, what a serial loop of
+    ``synthesize_padded`` calls returns, whether that loop passes numpy
+    (the service's path) or tensors; every result owns its memory."""
+    synth = EMGSynthesizer(_generator(), device="cpu")
+    split = _split(40, seed=4)
+    assert _shapes_and_batches(split, 64, 8)[1] >= 3
+    want = _serial(synth, split, 64, 8, tensors=inputs == "tensor")
+    got = convert_dataset(synth, split, "SPEECH_UNITS", bucket=64,
+                          max_batch=8)
+    assert [g["UTT_ID"] for g in got] == [item["UTT_ID"] for item in split]
+    for g, w, item in zip(got, want, split):
+        assert g["FAKE_EMG"].shape == (16 * len(item["SPEECH_UNITS"]), 8)
+        np.testing.assert_array_equal(g["FAKE_EMG"], w)
+    _assert_own_memory(got)
+
+
 def test_warm_first():
     """A capture runs the forward outside the capture first at its
     thread's first capture, and where another thread ran the signature's
@@ -354,6 +417,33 @@ def test_graph_replay_pct_synth_reader(counters, want, monkeypatch):
     assert got == (None if want is None else pytest.approx(want))
 
 
+@pytest.mark.parametrize("counters, want", [
+    ({infer.AHEAD: (68.0, 68), infer.BEHIND: (1.0, 1)}, 100 * 68 / 69),
+    ({infer.AHEAD: (69.0, 69)}, 100.0),
+    ({infer.BEHIND: (69.0, 69), "synth/batches": (70.0, 70)}, 0.0),
+    ({"synth/batches": (70.0, 70)}, None),
+    (None, None),
+])
+def test_ahead_pct_synth_reader(counters, want, monkeypatch):
+    """The benchmark's ``ahead_pct.synth``: batches queued ahead of the
+    card over those counted in the untraced stretch; nothing from a
+    program without the counters (the CPU's, or one before the pipeline)
+    or without the spans' module."""
+    import types
+
+    from portbench import phases, spec
+
+    if counters is None:
+        monkeypatch.setattr(phases, "program_profiling", lambda: None)
+        stash = {}
+    else:
+        stash = {"phases.untraced": {"units": 70.0, "seconds": 1.0,
+                                     "counters": counters}}
+    run = types.SimpleNamespace(stash=stash, config={})
+    got = spec.reader("ahead_pct.synth")(run)
+    assert got == (None if want is None else pytest.approx(want))
+
+
 # ---------------------------------------------------------------------------
 # The card
 # ---------------------------------------------------------------------------
@@ -400,25 +490,33 @@ def test_graphed_equals_eager_on_the_card(card, monkeypatch):
 
 @pytest.mark.card
 def test_convert_dataset_on_the_card(card, monkeypatch):
-    """A log-normal split, three passes: every pass equals the eager
-    synthesizer's bit for bit, and the counters read eager = captures =
-    shapes, replays for the rest."""
+    """A log-normal split, three passes, the first cold: every pass
+    equals a serial loop of the eager synthesizer's ``synthesize_padded``
+    bit for bit, and owns its memory; the graph counters read eager =
+    captures = shapes, replays for the rest; per pass, ``synth/ahead``
+    plus ``synth/behind`` count the batches less one."""
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     synth, ref = _pair(card, seed=1)
     split = _split(120, seed=3)
     shapes, batches = _shapes_and_batches(split, 64, 16)
-    want = convert_dataset(ref, split, "SPEECH_UNITS", bucket=64,
-                           max_batch=16)
+    want = _serial(ref, split, 64, 16)
     before = profiling.counters()
-    passes = [convert_dataset(synth, split, "SPEECH_UNITS", bucket=64,
-                              max_batch=16) for _ in range(3)]
+    passes = []
+    for _ in range(3):
+        start = profiling.counters()
+        passes.append(convert_dataset(synth, split, "SPEECH_UNITS",
+                                      bucket=64, max_batch=16))
+        got = profiling.since(start)
+        assert sum(got.get(name, (0, 0))[0]
+                   for name in (infer.AHEAD, infer.BEHIND)) == batches - 1
     assert _counts(before) == {infer_graphs.EAGER: shapes,
                                infer_graphs.CAPTURES: shapes,
                                infer_graphs.REPLAYS: 3 * batches - shapes}
     for got in passes:
         for g, w, item in zip(got, want, split):
             assert g["FAKE_EMG"].shape == (16 * len(item["SPEECH_UNITS"]), 8)
-            np.testing.assert_array_equal(g["FAKE_EMG"], w["FAKE_EMG"])
+            np.testing.assert_array_equal(g["FAKE_EMG"], w)
+        _assert_own_memory(got)
 
 
 @pytest.mark.card
