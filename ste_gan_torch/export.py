@@ -156,25 +156,26 @@ def export_generator(generator, feature_dim: int, serving: bool = False,
 def check_exportable_encoder(encoder) -> None:
     """Raise for an encoder the export does not take.
 
-    * ``EMGEncoderLFM2`` (LFM2's block stack): the artifact's signature and
-      minimum length are those of the relative-position transformer (the
-      windowed attention regime), which it does not have, and its dropless
-      routing's grouped products have not been traced with a symbolic
-      token count; the JAX package has no such encoder.
+    * A ``SparseBlockEncoder`` (``EMGEncoderLFM2``, LFM2's block stack;
+      ``EMGEncoderDeepseekV3``, DeepSeek-V3's): the artifact's signature
+      and minimum length are those of the relative-position transformer
+      (the windowed attention regime), which it does not have, and its
+      dropless routing's grouped products have not been traced with a
+      symbolic token count; the JAX package has no such encoder.
     * A mixture-of-experts encoder: its expert capacity ``ceil(
       capacity_factor * k * S / E)`` is a function of the token count
       ``S``, which an export with a symbolic batch and length leaves
       symbolic; the JAX package's ``export_emg_encoder`` and
       ``quant.export_emg_encoder_quantized`` fail on it too (a
       concretisation error), so neither package exports one."""
-    from ste_gan_torch.models.emg_encoder import EMGEncoderLFM2
+    from ste_gan_torch.models.emg_encoder import SparseBlockEncoder
 
-    if isinstance(encoder, EMGEncoderLFM2):
+    if isinstance(encoder, SparseBlockEncoder):
         raise NotImplementedError(
-            "an LFM2 encoder (EMGEncoderLFM2) cannot be exported: the "
-            "export is written for the relative-position transformer "
-            "encoder, and the LFM2 stack's dropless expert routing is not "
-            "traced with a symbolic token count")
+            f"a sparse-block encoder ({type(encoder).__name__}) cannot be "
+            "exported: the export is written for the relative-position "
+            "transformer encoder, and the stack's dropless expert routing "
+            "is not traced with a symbolic token count")
     if getattr(encoder, "moe_experts", 0):
         raise NotImplementedError(
             "a mixture-of-experts encoder cannot be exported: its expert "

@@ -39,9 +39,12 @@ conv_transformer_moe.yaml``); a training forward records each block's
 load-balancing loss, which :meth:`pop_moe_aux_loss` collects.
 
 :class:`EMGEncoderLFM2` (``type: EMGEncoderLFM2``, ``configs/emg_encoder/
-lfm2_8b_a1b.yaml``; no JAX counterpart) keeps the same front end and
-heads around LFM2-8B-A1B's block stack (``models/lfm2.py``), on one
-device.
+lfm2_8b_a1b.yaml``) and :class:`EMGEncoderDeepseekV3` (``type:
+EMGEncoderDeepseekV3``, ``configs/emg_encoder/kanana_2_30b_a3b.yaml``), both
+:class:`SparseBlockEncoder` and without a JAX counterpart, keep the same
+front end and heads around LFM2-8B-A1B's block stack (``models/lfm2.py``)
+or DeepSeek-V3's as kanana-2-30b-a3b publishes it
+(``models/deepseek_v3.py``), on one device.
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ import torch.nn.functional as F
 
 from ste_gan_torch import constants as C
 from ste_gan_torch.models import lfm2
+from ste_gan_torch.models.deepseek_v3 import deepseek_v3_layers
 from ste_gan_torch.models.lfm2 import (
     LAYER_TYPES, RMSNorm, lfm2_layers, sparse_blocks)
 from ste_gan_torch.models.transformer import (
@@ -316,50 +320,29 @@ class EMGEncoderTransformer(nn.Module):
         return x.float()
 
 
-class EMGEncoderLFM2(nn.Module):
-    """EMG ``[B, T, C]`` -> (speech units ``[B, T/16, 256]``, phoneme logits
-    ``[B, T/16, 48]``), both f32, through LFM2's block stack
-    (``models/lfm2.py``; LFM2-8B-A1B,
-    https://huggingface.co/LiquidAI/LFM2-8B-A1B/blob/main/config.json).
+class SparseBlockEncoder(nn.Module):
+    """The published encoder's front end around a block stack of a large
+    sparse model: EMG ``[B, T, C]`` -> (speech units ``[B, T/16, 256]``,
+    phoneme logits ``[B, T/16, 48]``), both f32.
 
-    The published encoder's front end (four stride-2 BatchNorm ResBlocks at
-    ``model_size``, f32 with cuDNN's TF32 as ``EMGEncoderTransformer``) and
-    ``w_raw_in`` (``model_size -> hidden_size``) feed ``num_hidden_layers``
-    LFM2 layers (``layer_types[:num_hidden_layers]``: gated short convs and
-    causal GQA attention; the first ``num_dense_layers`` feed-forwards dense
-    SwiGLU, the rest ``DroplessMoE``), then a final RMSNorm and the unit and
-    phoneme heads. The LFM2 layers are causal within each window. No
-    dropout. Parameters are f32; every product from ``w_raw_in`` on runs in
-    ``models/lfm2.py``'s ``COMPUTE_DTYPE`` (bf16, the published precision).
+    Four stride-2 BatchNorm ResBlocks at ``model_size`` (f32 with cuDNN's
+    TF32, as ``EMGEncoderTransformer``) and ``w_raw_in`` (``model_size ->
+    hidden_size``) feed ``layers`` (each ``layer(x, train)``, causal
+    within each window), then a final RMSNorm and the unit and phoneme
+    heads. No dropout. Parameters are f32; every product from ``w_raw_in``
+    on runs in ``models/lfm2.py``'s ``COMPUTE_DTYPE`` (bf16, the published
+    precision).
 
     Single device only: ``group`` (data parallelism), tensor and pipeline
     parallelism are not written for it. A training forward records each
-    sparse block's loads; :meth:`update_expert_bias` moves the expert
-    biases after the optimizer step."""
+    ``DroplessMoE`` block's loads; :meth:`update_expert_bias` moves the
+    expert biases after the optimizer step."""
 
-    def __init__(self, num_ins: int = C.NUM_EMG_CHANNELS,
-                 num_outs: int = C.SPEECH_UNITS_FEAT_SIZE,
-                 num_aux_outs: int = C.NUM_PHONEMES, model_size: int = 768,
-                 num_extra_res_blocks: int = 3, hidden_size: int = 2048,
-                 num_hidden_layers: int = 8,
-                 layer_types=LAYER_TYPES, num_attention_heads: int = 32,
-                 num_key_value_heads: int = 8,
-                 intermediate_size: int = 7168,
-                 moe_intermediate_size: int = 1792,
-                 num_dense_layers: int = 2, num_experts: int = 32,
-                 num_experts_per_tok: int = 4, conv_L_cache: int = 3,
-                 conv_bias: bool = False, norm_eps: float = 1e-5,
-                 rope_theta: float = 1e6, norm_topk_prob: bool = True,
-                 routed_scaling_factor: float = 1.0,
-                 use_expert_bias: bool = True, dtype=torch.float32,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, num_ins: int, num_outs: int, num_aux_outs: int,
+                 model_size: int, num_extra_res_blocks: int,
+                 hidden_size: int, eps: float, num_experts: int, dtype,
+                 generator: Optional[torch.Generator], make_layers):
         super().__init__()
-        if conv_bias:
-            raise ValueError("EMGEncoderLFM2: conv_bias is not written "
-                             "(LFM2-8B-A1B has none)")
-        if len(layer_types) < num_hidden_layers:
-            raise ValueError(f"layer_types names {len(layer_types)} layers, "
-                             f"num_hidden_layers is {num_hidden_layers}")
         self.dtype = dtype
         self.compute_dtype = lfm2.COMPUTE_DTYPE
         self.moe_experts = num_experts
@@ -370,17 +353,8 @@ class EMGEncoderLFM2(nn.Module):
             cin = model_size
         self.conv_blocks = nn.ModuleList(blocks)
         self.w_raw_in = torch_linear(model_size, hidden_size, generator)
-        self.layers = lfm2_layers(
-            layer_types[:num_hidden_layers], num_dense_layers,
-            dim=hidden_size, heads=num_attention_heads,
-            kv_heads=num_key_value_heads, dense_hidden=intermediate_size,
-            expert_hidden=moe_intermediate_size, num_experts=num_experts,
-            top_k=num_experts_per_tok, taps=conv_L_cache, eps=norm_eps,
-            theta=rope_theta, norm_topk_prob=norm_topk_prob,
-            scaling=routed_scaling_factor, use_expert_bias=use_expert_bias,
-            dtype=self.compute_dtype,
-            generator=generator)
-        self.final_norm = RMSNorm(hidden_size, norm_eps)
+        self.layers = make_layers()
+        self.final_norm = RMSNorm(hidden_size, eps)
         self.w_out = torch_linear(hidden_size, num_outs, generator)
         self.w_aux = torch_linear(hidden_size, num_aux_outs, generator)
 
@@ -399,8 +373,9 @@ class EMGEncoderLFM2(nn.Module):
         recorded. ``generator`` is unused (no dropout)."""
         if group is not None:
             raise NotImplementedError(
-                "EMGEncoderLFM2 runs on one device: data parallelism over "
-                "its routing and expert biases is not written")
+                f"{type(self).__name__} runs on one device: data "
+                "parallelism over its routing and expert biases is not "
+                "written")
         x = self._stack(x_raw, train, shift)
         dt = self.compute_dtype
         return (linear(x, self.w_out, dt).float(),
@@ -422,15 +397,107 @@ class EMGEncoderLFM2(nn.Module):
         return self._stack(x_raw, False, 0).float()
 
 
+class EMGEncoderLFM2(SparseBlockEncoder):
+    """:class:`SparseBlockEncoder` around LFM2's block stack
+    (``models/lfm2.py``; LFM2-8B-A1B,
+    https://huggingface.co/LiquidAI/LFM2-8B-A1B/blob/main/config.json):
+    ``num_hidden_layers`` LFM2 layers (``layer_types[:num_hidden_layers]``:
+    gated short convs and causal GQA attention; the first
+    ``num_dense_layers`` feed-forwards dense SwiGLU, the rest
+    ``DroplessMoE``)."""
+
+    def __init__(self, num_ins: int = C.NUM_EMG_CHANNELS,
+                 num_outs: int = C.SPEECH_UNITS_FEAT_SIZE,
+                 num_aux_outs: int = C.NUM_PHONEMES, model_size: int = 768,
+                 num_extra_res_blocks: int = 3, hidden_size: int = 2048,
+                 num_hidden_layers: int = 8,
+                 layer_types=LAYER_TYPES, num_attention_heads: int = 32,
+                 num_key_value_heads: int = 8,
+                 intermediate_size: int = 7168,
+                 moe_intermediate_size: int = 1792,
+                 num_dense_layers: int = 2, num_experts: int = 32,
+                 num_experts_per_tok: int = 4, conv_L_cache: int = 3,
+                 conv_bias: bool = False, norm_eps: float = 1e-5,
+                 rope_theta: float = 1e6, norm_topk_prob: bool = True,
+                 routed_scaling_factor: float = 1.0,
+                 use_expert_bias: bool = True, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        if conv_bias:
+            raise ValueError("EMGEncoderLFM2: conv_bias is not written "
+                             "(LFM2-8B-A1B has none)")
+        if len(layer_types) < num_hidden_layers:
+            raise ValueError(f"layer_types names {len(layer_types)} layers, "
+                             f"num_hidden_layers is {num_hidden_layers}")
+        super().__init__(
+            num_ins, num_outs, num_aux_outs, model_size,
+            num_extra_res_blocks, hidden_size, norm_eps, num_experts, dtype,
+            generator, lambda: lfm2_layers(
+                layer_types[:num_hidden_layers], num_dense_layers,
+                dim=hidden_size, heads=num_attention_heads,
+                kv_heads=num_key_value_heads, dense_hidden=intermediate_size,
+                expert_hidden=moe_intermediate_size, num_experts=num_experts,
+                top_k=num_experts_per_tok, taps=conv_L_cache, eps=norm_eps,
+                theta=rope_theta, norm_topk_prob=norm_topk_prob,
+                scaling=routed_scaling_factor,
+                use_expert_bias=use_expert_bias, dtype=lfm2.COMPUTE_DTYPE,
+                generator=generator))
+
+
+class EMGEncoderDeepseekV3(SparseBlockEncoder):
+    """:class:`SparseBlockEncoder` around DeepSeek-V3's block stack
+    (``models/deepseek_v3.py``; kanana-2-30b-a3b,
+    https://huggingface.co/kakaocorp/kanana-2-30b-a3b-instruct-2601/blob/main/config.json):
+    ``num_hidden_layers`` layers of multi-head latent attention, the first
+    ``first_k_dense_replace`` with a dense SwiGLU, the rest ``DroplessMoE``
+    with ``n_shared_experts`` shared experts. The keyword arguments are the
+    published config's names. The stack is written for that config's
+    choices: no query compression (``q_lora_rank`` null), one expert group
+    (``n_group`` 1), sigmoid scores steered by the bias (``noaux_tc``),
+    interleaved RoPE with no scaling."""
+
+    def __init__(self, num_ins: int = C.NUM_EMG_CHANNELS,
+                 num_outs: int = C.SPEECH_UNITS_FEAT_SIZE,
+                 num_aux_outs: int = C.NUM_PHONEMES, model_size: int = 768,
+                 num_extra_res_blocks: int = 3, hidden_size: int = 2048,
+                 num_hidden_layers: int = 5, num_attention_heads: int = 32,
+                 kv_lora_rank: int = 512, qk_nope_head_dim: int = 128,
+                 qk_rope_head_dim: int = 64, v_head_dim: int = 128,
+                 intermediate_size: int = 6144,
+                 moe_intermediate_size: int = 768,
+                 first_k_dense_replace: int = 1, n_routed_experts: int = 128,
+                 num_experts_per_tok: int = 6, n_shared_experts: int = 2,
+                 norm_topk_prob: bool = True,
+                 routed_scaling_factor: float = 2.448,
+                 rms_norm_eps: float = 1e-6, rope_theta: float = 1e6,
+                 dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(
+            num_ins, num_outs, num_aux_outs, model_size,
+            num_extra_res_blocks, hidden_size, rms_norm_eps,
+            n_routed_experts, dtype, generator, lambda: deepseek_v3_layers(
+                num_hidden_layers, first_k_dense_replace, dim=hidden_size,
+                heads=num_attention_heads, kv_lora_rank=kv_lora_rank,
+                qk_nope_head_dim=qk_nope_head_dim,
+                qk_rope_head_dim=qk_rope_head_dim, v_head_dim=v_head_dim,
+                dense_hidden=intermediate_size,
+                expert_hidden=moe_intermediate_size,
+                num_experts=n_routed_experts, top_k=num_experts_per_tok,
+                n_shared_experts=n_shared_experts,
+                norm_topk_prob=norm_topk_prob, scaling=routed_scaling_factor,
+                eps=rms_norm_eps, theta=rope_theta,
+                dtype=lfm2.COMPUTE_DTYPE, generator=generator))
+
+
 ENCODER_TYPES = {"EMGEncoderTransformer": EMGEncoderTransformer,
-                 "EMGEncoderLFM2": EMGEncoderLFM2}
+                 "EMGEncoderLFM2": EMGEncoderLFM2,
+                 "EMGEncoderDeepseekV3": EMGEncoderDeepseekV3}
 
 
 def init_emg_encoder(cfg, dtype=torch.float32,
                      generator: Optional[torch.Generator] = None
                      ) -> nn.Module:
     """Factory from config (counterpart of the JAX factory; the JAX package
-    has no ``EMGEncoderLFM2``)."""
+    has neither sparse-block encoder)."""
     if cfg.emg_encoder.type not in ENCODER_TYPES:
         raise ValueError(f"Unknown EMG encoder type: {cfg.emg_encoder.type}")
     params = dict(cfg.emg_encoder.params or {})

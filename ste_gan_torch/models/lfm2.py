@@ -66,8 +66,16 @@ def product(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
     return F.linear(x.to(dtype), layer.weight.to(dtype))
 
 
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float
+             ) -> torch.Tensor:
+    """``x / sqrt(mean(x^2) + eps) * weight`` over the last axis, in f32."""
+    xf = x.float()
+    return xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True)
+                            + eps) * weight
+
+
 class RMSNorm(nn.Module):
-    """``x / sqrt(mean(x^2) + eps) * weight`` in f32."""
+    """:func:`rms_norm` with its own ``weight``."""
 
     def __init__(self, dim: int, eps: float):
         super().__init__()
@@ -75,9 +83,7 @@ class RMSNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        return (xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True)
-                                 + self.eps) * self.weight)
+        return rms_norm(x, self.weight, self.eps)
 
 
 def causal_taps(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -309,6 +315,5 @@ def lfm2_layers(layer_types: Sequence[str], num_dense_layers: int, **kw
 
 def sparse_blocks(layers: nn.ModuleList) -> list:
     """The stack's ``DroplessMoE`` blocks, in order."""
-    return [layer.feed_forward for layer in layers
-            if isinstance(layer.feed_forward, DroplessMoE)]
+    return [m for m in layers.modules() if isinstance(m, DroplessMoE)]
 

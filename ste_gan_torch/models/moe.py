@@ -1,10 +1,11 @@
 """Mixture-of-experts feed-forward blocks of the EMG encoders.
 
-:class:`DroplessMoE` is LFM2-8B-A1B's sparse block (sigmoid scores, top-k
-chosen with an expert bias, no capacity, SwiGLU experts as grouped
-products); the LFM2 encoder (``models/lfm2.py``) uses it and the JAX
-package has no counterpart. The rest of this docstring is about
-:class:`MoEFeedForward`.
+:class:`DroplessMoE` is LFM2-8B-A1B's and DeepSeek-V3's sparse block
+(sigmoid scores, top-k chosen with an expert bias, no capacity, SwiGLU
+experts as grouped products, DeepSeek-V3's shared experts); the LFM2 and
+DeepSeek-V3 encoders (``models/lfm2.py``, ``models/deepseek_v3.py``) use
+it and the JAX package has no counterpart. The rest of this docstring is
+about :class:`MoEFeedForward`.
 
 :class:`MoEFeedForward`, the encoder's transformer layers' block:
 counterpart of ``ste_gan_tpu/models/moe.py`` (a scaling extension with no
@@ -238,16 +239,23 @@ EXPERT_BIAS_RATE = 1e-3
 
 
 class DroplessMoE(nn.Module):
-    """LFM2-MoE's sparse block: ``[B, T, D]`` in (f32) and out (f32).
+    """LFM2-MoE's and DeepSeek-V3's sparse block: ``[B, T, D]`` in (f32)
+    and out (f32).
 
-    Routing, as Liquid AI's ``Lfm2MoeSparseMoeBlock``:
+    Routing, as Liquid AI's ``Lfm2MoeSparseMoeBlock`` and ``DeepseekV3MoE``
+    with one expert group:
 
     * scores ``sigmoid(x @ gate^T)`` in f32;
     * each token's ``top_k`` experts chosen on ``score + expert_bias``; the
       bias steers the choice only;
-    * gates are the chosen experts' scores, over their sum (+1e-6) where
-      ``norm_topk_prob``, times ``routed_scaling_factor``;
+    * gates are the chosen experts' scores, over their sum plus
+      ``gate_eps`` (LFM2 1e-6, DeepSeek-V3 1e-20) where ``norm_topk_prob``,
+      times ``routed_scaling_factor``;
     * no capacity: every pick is computed.
+
+    ``shared`` (DeepSeek-V3's ``shared_experts``, a module ``[S, D] ->
+    [S, D]``) runs on every token and is added to the routed sum; without
+    it the block launches nothing more.
 
     The experts are SwiGLU without biases, ``w2 (silu(w1 x) * w3 x)``, each
     weight in ``nn.Linear``'s ``[out, in]`` layout (``w1``, ``w3`` ``[E, F,
@@ -264,20 +272,23 @@ class DroplessMoE(nn.Module):
     load_e)`` (DeepSeek-V3, arXiv:2412.19437 §2.1.2) over the last training
     forward's loads (:meth:`update_bias`); there is no auxiliary loss.
 
-    Spans ``enc/moe/route``, ``enc/moe/experts`` (forward and backward) and
-    ``enc/moe/combine``; counters ``moe/picks`` and ``moe/max_load`` (the
-    most-loaded expert's picks, summed on the device in int64). No pick is
-    dropped, so the block has no ``moe/dropped``."""
+    Spans ``enc/moe/route``, ``enc/moe/experts`` (forward and backward),
+    ``enc/moe/combine`` and, with ``shared``, ``enc/moe/shared``; counters
+    ``moe/picks`` and ``moe/max_load`` (the most-loaded expert's picks,
+    summed on the device in int64). No pick is dropped, so the block has
+    no ``moe/dropped``."""
 
     def __init__(self, d_model: int, num_experts: int, dim_feedforward: int,
                  top_k: int = 4, norm_topk_prob: bool = True,
                  routed_scaling_factor: float = 1.0,
                  use_expert_bias: bool = True, dtype=torch.bfloat16,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 shared: Optional[nn.Module] = None, gate_eps: float = 1e-6):
         super().__init__()
         d, e, f = d_model, num_experts, dim_feedforward
         self.num_experts, self.top_k = e, top_k
         self.norm_topk_prob = norm_topk_prob
+        self.gate_eps = float(gate_eps)
         self.routed_scaling_factor = float(routed_scaling_factor)
         self.dtype = dtype
         self.gate = nn.Linear(d, e, bias=False)
@@ -291,6 +302,7 @@ class DroplessMoE(nn.Module):
             self.register_buffer("expert_bias", torch.zeros(e))
         else:
             self.expert_bias = None
+        self.shared_experts = shared
         #: Picks per expert of the last training forward (int64 ``[E]``).
         self.load: Optional[torch.Tensor] = None
 
@@ -303,7 +315,7 @@ class DroplessMoE(nn.Module):
         chosen = torch.topk(choice, self.top_k, dim=-1).indices
         gates = scores.gather(1, chosen)
         if self.norm_topk_prob:
-            gates = gates / (gates.sum(dim=-1, keepdim=True) + 1e-6)
+            gates = gates / (gates.sum(dim=-1, keepdim=True) + self.gate_eps)
         return chosen, gates * self.routed_scaling_factor
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -330,6 +342,9 @@ class DroplessMoE(nn.Module):
             back[order] = torch.arange(s * k, device=x.device)
             y = (ys.index_select(0, back).view(s, k, d).float()
                  * gates[..., None]).sum(dim=1)
+        if self.shared_experts is not None:
+            with span("enc/moe/shared"):
+                y = y + self.shared_experts(tokens).float()
         return y.reshape(b, t, d)
 
     @torch.no_grad()

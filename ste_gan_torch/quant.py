@@ -153,7 +153,8 @@ def export_emg_encoder_quantized(encoder, num_emg_channels: int):
     conv and linear weights, attention projections and relative-position
     tables as per-channel int8 (the encoder rule); BatchNorm statistics and
     affines and LayerNorms stay f32. Same signature and minimum length;
-    an MoE or LFM2 encoder raises, as in the unquantised export."""
+    an MoE or sparse-block (LFM2, DeepSeek-V3) encoder raises, as in the
+    unquantised export."""
     from ste_gan_torch.export import check_exportable_encoder, export_emg_encoder
 
     check_exportable_encoder(encoder)

@@ -70,6 +70,10 @@ with LFM2-8B-A1B's block stack (``EMGEncoderLFM2``, no JAX counterpart) on
 one device: f32 parameters and AdamW state, bf16 products
 (``models/lfm2.py`` ``COMPUTE_DTYPE``), and after each update the dropless sparse blocks'
 expert biases move by their loads; there is no auxiliary loss.
+``--emg_enc_cfg configs/emg_encoder/kanana_2_30b_a3b.yaml`` trains the
+encoder with kanana-2-30b-a3b's DeepSeek-V3 block stack
+(``EMGEncoderDeepseekV3``: multi-head latent attention, 128 routed and 2
+shared experts) the same way.
 """
 from __future__ import annotations
 
@@ -95,7 +99,7 @@ from ste_gan_torch.data.loader import Prefetcher, to_device
 from ste_gan_torch.device import resolve_device
 from ste_gan_torch.losses.encoder_loss import PAIRWISE_EPS
 from ste_gan_torch.models.emg_encoder import (
-    EMGEncoderLFM2, EMGEncoderTransformer, init_emg_encoder)
+    EMGEncoderTransformer, SparseBlockEncoder, init_emg_encoder)
 from ste_gan_torch.ops import kernel_launches
 from ste_gan_torch.ops.dtw import dtw_alignment_batched
 from ste_gan_torch.ops.fused_adamw import (
@@ -306,18 +310,19 @@ def make_encoder_train_step(model: EMGEncoderTransformer, max_samples: int,
     ``allreduce_stage_grads_`` says. The step updates this rank's set:
     ``stage_parameters`` (``group`` is unused).
 
-    An ``EMGEncoderLFM2`` (one device only) moves its expert biases after
-    the AdamW update, from the loads of the step's forward.
+    A ``SparseBlockEncoder`` (``EMGEncoderLFM2``, ``EMGEncoderDeepseekV3``;
+    one device only) moves its expert biases after the AdamW update, from
+    the loads of the step's forward.
 
     Spans (``utils/profiling.py``): ``enc/forward``, ``enc/loss`` (with
     ``dtw`` inside) and ``enc/backward`` around the unpipelined step's
     phases, ``adamw`` inside the update, ``enc/moe/bias`` after it."""
-    lfm2 = isinstance(model, EMGEncoderLFM2)
-    if lfm2 and (pipeline is not None or group is not None):
+    biased = isinstance(model, SparseBlockEncoder)
+    if biased and (pipeline is not None or group is not None):
         raise NotImplementedError(
-            "EMGEncoderLFM2 trains on one device: its routing, expert "
-            "biases and loads over data ranks or pipeline stages are not "
-            "written")
+            f"{type(model).__name__} trains on one device: its routing, "
+            "expert biases and loads over data ranks or pipeline stages are "
+            "not written")
     if pipeline is not None:
         return _pipelined_train_step(model, max_samples, silent_pred_frames,
                                      *pipeline)
@@ -340,7 +345,7 @@ def make_encoder_train_step(model: EMGEncoderTransformer, max_samples: int,
             grads = mesh.allreduce_grads_(torch.autograd.grad(loss, params),
                                           group, average=False)
         fused_adamw_(state.opt, grads)
-        if lfm2:
+        if biased:
             with span("enc/moe/bias"):
                 model.update_expert_bias()
         state.step += 1
@@ -595,9 +600,10 @@ def train_encoder_model(cfg: Config, trainset: EMGDataset, devset: EMGDataset,
     model = init_emg_encoder(
         cfg, torch.float32,
         torch.Generator().manual_seed(C.RANDOM_SEED)).to(dev)
-    if isinstance(model, EMGEncoderLFM2) and size > 1:
+    if isinstance(model, SparseBlockEncoder) and size > 1:
         raise NotImplementedError(
-            "EMGEncoderLFM2 trains on one device (models/emg_encoder.py)")
+            f"{type(model).__name__} trains on one device "
+            "(models/emg_encoder.py)")
     if stages > 1:
         if model.moe_experts > 0:
             raise NotImplementedError(

@@ -22,10 +22,10 @@ A span's host time is the time the host spends in the block: the launches
 it queues, not the card's work, except where the block itself waits
 (``synth/fetch``, ``feed/wait``).
 
-A span opened inside an autograd function's ``backward`` (``enc/lfm2/*``
-and ``enc/moe/experts``, which time their backward under the forward's
-name) runs on autograd's thread on the card, so the trace attributes the
-backward's kernels to it there.
+A span opened inside an autograd function's ``backward`` (``enc/lfm2/*``,
+``enc/mla/attention`` and ``enc/moe/experts``, which time their backward
+under the forward's name) runs on autograd's thread on the card, so the
+trace attributes the backward's kernels to it there.
 
 The synthesis loop's (``infer.py`` ``convert_dataset``), per batch: spans
 ``synth/pack``, ``synth/h2d``, ``synth/forward``, ``synth/fetch`` (the
@@ -37,19 +37,25 @@ after it had finished). The generator's CUDA graphs add
 ``synth/graph_replays``, ``synth/graph_eager`` and
 ``synth/graph_captures`` (``infer_graphs.py``).
 
-The encoders' LFM2 and mixture-of-experts spans and counters
-(``models/lfm2.py``; ``models/moe.py``, both blocks, the capacity block's
-in its forward only and counted over the whole batch):
+The encoders' LFM2, latent-attention and mixture-of-experts spans and
+counters (``models/lfm2.py``; ``models/deepseek_v3.py``; ``models/moe.py``,
+both blocks, the capacity block's in its forward only and counted over the
+whole batch):
 
 * ``enc/lfm2/short_conv``: the gated short convolution (``B * x``, the
   causal depthwise conv, ``C *``), forward and backward, without its
   projections;
 * ``enc/lfm2/attention``: the q/k RMSNorm, RoPE and causal GQA attention,
   forward and backward, without the projections;
+* ``enc/mla/attention``: multi-head latent attention's latent RMSNorm, and
+  its RoPE and causal attention core, forward and backward;
+  ``enc/mla/project``: its four projections (``q_proj``,
+  ``kv_a_proj_with_mqa``, ``kv_b_proj``, ``o_proj``), forward;
 * ``enc/moe/route``: router, scores, top-k and the picks' order or slots;
   ``enc/moe/experts``: the expert products (``DroplessMoE``'s grouped
   ones forward and backward); ``enc/moe/combine``: the gated sum of each
-  token's picks;
+  token's picks; ``enc/moe/shared``: ``DroplessMoE``'s shared experts
+  (DeepSeek-V3's), forward;
 * ``enc/moe/bias``: the expert biases' update after the optimizer step;
 * counters ``moe/picks`` (a host number) and ``moe/max_load`` (summed on
   the card in int64, read by :func:`counters`), each added once per MoE
